@@ -185,7 +185,7 @@ def main(argv=None):
     tr.add_argument("--d-state", type=int, default=16)
     tr.add_argument("--ssm-variant", choices=("mamba1", "mamba2"),
                     default="mamba1",
-                    help="mamba2 = SSD (MXU chunked recurrence); pick "
+                    help="mamba2 = SSD (chunked-matmul recurrence); pick "
                          "--d-state/--head-dim to taste (e.g. 64/64)")
     tr.add_argument("--head-dim", type=int, default=64,
                     help="mamba2 head size (d_inner %% head_dim == 0)")

@@ -200,7 +200,7 @@ def cmd_train(args):
             sys.exit(f"checkpoint task_type {task_saved!r} != requested "
                      f"{task_type!r}")
         # A mode/config mismatch would otherwise surface much later as an
-        # opaque orbax pytree-template error — fail with a clear message.
+        # opaque pytree-template error — fail with a clear message.
         import json as _json
 
         meta = _json.loads(
@@ -254,7 +254,7 @@ def cmd_train(args):
         # the exact masks an uninterrupted run would.
         sub = jax.random.fold_in(rng, step)
         state, metrics = train_step(state, params, batch, sub)
-        # per-step sync (donated-state run-ahead degrades the remote runtime)
+        # per-step sync bounds host run-ahead on the donated state
         loss = float(metrics["loss"])
         if (step + 1) % args.logging_steps == 0:
             log.info("step %d/%d loss=%.4f", step + 1, args.max_steps, loss)

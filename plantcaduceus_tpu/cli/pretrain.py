@@ -126,18 +126,6 @@ def main(argv=None):
         params=params)
     dtype = jnp.bfloat16 if args.dtype == "bfloat16" else jnp.float32
     remat = not args.no_remat
-    interpret_ctx = None
-    if args.seq > 1 and jax.default_backend() != "tpu":
-        # Context parallelism needs the Pallas scan; off-TPU (CPU smoke
-        # runs) that means interpret mode, whose io_callback cannot live
-        # under jax.checkpoint — force remat off too.
-        from jax.experimental.pallas import tpu as pltpu
-
-        interpret_ctx = pltpu.force_tpu_interpret_mode()
-        interpret_ctx.__enter__()
-        if remat:
-            logging.info("seq>1 off-TPU: pallas interpret mode, remat off")
-            remat = False
     init_state, train_step, eval_step = step_lib.make_train_step(
         cfg, optimizer, mesh, params, dtype=dtype, remat=remat,
         pp_microbatches=args.pipe_microbatches, grad_accum=args.grad_accum)

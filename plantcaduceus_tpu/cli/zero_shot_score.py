@@ -46,8 +46,7 @@ def parse_args(argv=None):
     p.add_argument("-window", dest="window", type=int, default=512)
     p.add_argument("-seq", dest="seq", type=int, default=1,
                    help="context-parallel mesh shards over the window "
-                        "length (long-window latency; needs the pallas "
-                        "scan path)")
+                        "length (long-window latency)")
     p.add_argument("-dtype", dest="dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("-no-progress", action="store_true", dest="no_progress")

@@ -67,9 +67,9 @@ def write_model_card(
     ]
     if n_params:
         rows.append(("parameters", f"{n_params:,}"))
-    body = ["", "# PlantCaduceus (TPU-native)", "",
+    body = ["", "# PlantCaduceus (JAX)", "",
             "Masked-language genomic model trained with the "
-            "plantcaduceus_tpu framework (JAX/Pallas on TPU).", "",
+            "plantcaduceus_tpu framework (JAX).", "",
             "| config | value |", "|---|---|"]
     body += [f"| {k} | {v} |" for k, v in rows]
     if finetuned_from:

@@ -68,7 +68,7 @@ def _load_adapter_tensors(adapter_dir: Path) -> Dict[str, np.ndarray]:
 
 def is_peft_adapter_dir(path) -> bool:
     """A PEFT dir carries peft_type/target_modules in adapter_config.json;
-    this framework's native dirs carry 'targets' + an orbax subdir."""
+    this framework's native dirs carry 'targets' + an adapter.npz."""
     p = Path(path)
     cfgf = p / "adapter_config.json"
     if not cfgf.exists():

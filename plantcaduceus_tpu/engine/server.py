@@ -1,10 +1,9 @@
 """Persistent scoring server — serving mode for production deployment.
 
 The reference has no serving story: every ``zero_shot_score.py`` invocation
-pays model load + CUDA context + compile from scratch (SURVEY.md §3.1). On
-TPU that cost is worse (remote compile of the full model), so a resident
-process that compiles ONCE and then serves requests is the natural
-deployment shape. This module provides it with nothing beyond the stdlib:
+pays model load + CUDA context + compile from scratch (SURVEY.md §3.1), so
+a resident process that compiles ONCE and then serves requests is the
+natural deployment shape. This module provides it with nothing beyond the stdlib:
 
 * ``ScoringService`` — owns an InferenceRunner + tokenizer and exposes the
   three inference primitives (variant scores, masked nucleotide probs,
@@ -13,7 +12,7 @@ deployment shape. This module provides it with nothing beyond the stdlib:
   and drained by a single worker thread into one fixed-shape runner call
   (the runner pads ragged tails, so XLA keeps exactly one executable per
   batch shape — SURVEY.md §7.3's recompilation-control rule). A single
-  worker also serialises TPU access (one process/thread owns the chip).
+  worker also serialises device access (one process/thread owns the card).
 * ``serve()`` — a ThreadingHTTPServer with a tiny JSON API:
 
       GET  /healthz               -> {"status": "ok", "model": ...}

@@ -93,8 +93,8 @@ def forward(params: Params, input_ids: jax.Array, cfg: BertConfig,
     x = params["embedding"].astype(dtype)[input_ids]
     x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"], cfg.norm_epsilon)
 
-    # ALiBi / local windows pass as structured forms: on TPU they hit the
-    # Pallas flash kernel (bias rebuilt in-kernel, no [L, L] tensors).
+    # ALiBi / local windows pass as structured forms (ops/attention.py
+    # builds the bias).
     alibi = cfg.position == "alibi"
     cos = sin = None
     if cfg.position == "rope":

@@ -1,12 +1,12 @@
-"""TPU-native Caduceus: bidirectional, RC-equivariant Mamba masked LM.
+"""Caduceus in JAX: bidirectional, RC-equivariant Mamba masked LM.
 
 Re-architecture notes (this is NOT a port of the torch remote code the
 reference loads via ``trust_remote_code`` — see SURVEY.md §2.2):
 
 The torch Caduceus composes three nested wrappers per layer — RCPS stream
 wrapper, BiMamba direction wrapper, Mamba mixer — each doing its own
-flips/concats and small matmuls. On TPU that structure wastes the MXU. Here
-the same mathematical model is flattened into large batched ops:
+flips/concats and small matmuls. Here the same mathematical model is
+flattened into large batched ops:
 
 * **RC stream folding.** An RCPS layer applies the *same* weights to the
   forward stream and to the flip_LC-transformed RC stream. We therefore keep
@@ -21,11 +21,11 @@ the same mathematical model is flattened into large batched ops:
 * **Direction folding.** The two scan directions of a BiMamba block share
   in_proj/out_proj (bidirectional_weight_tie) but have separate
   conv/x_proj/dt_proj/A/D. Direction becomes a leading *group* axis ``G``
-  over stacked per-direction weights; the reverse direction is realised by
-  flipping the time axis before/after one batched causal scan.
+  over stacked per-direction weights; the reverse direction runs an
+  anticausal conv and a right-to-left scan in natural time order.
 
-Per layer this yields exactly two full-width MXU matmuls (in_proj, out_proj),
-two grouped matmuls (x_proj, dt_proj) and one grouped selective scan over
+Per layer this yields exactly two full-width matmuls (in_proj, out_proj),
+one grouped matmul (x_proj) and one grouped selective scan over
 ``[G, 2B, L, d_inner]`` — versus 8 small mamba calls in the reference
 composition.
 
@@ -41,22 +41,21 @@ from __future__ import annotations
 
 import functools
 import math
-import warnings
 from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
 
 from plantcaduceus_tpu.models.config import CaduceusConfig
-from plantcaduceus_tpu.ops.conv import causal_conv1d
+from plantcaduceus_tpu.ops.conv import (depthwise_conv_xla,
+                                        halo_depthwise_conv_silu)
 from plantcaduceus_tpu.ops.norms import layer_norm, rms_norm
 from plantcaduceus_tpu.ops.selective_scan import selective_scan
+from plantcaduceus_tpu.ops.seq_parallel import selective_scan_seq_sharded
+from plantcaduceus_tpu.ops.ssd import select_ssd_impl, ssd_chunked
+from plantcaduceus_tpu.ops.ssd_seq_parallel import ssd_dir_seq_sharded
 
 Params = Dict[str, Any]
-
-import os as _os
-
-_USE_GATED_KERNEL = _os.environ.get("PCAD_GATED_KERNEL") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +358,6 @@ def _add_lora(base: jax.Array, lora, name: str, x: jax.Array, spec_a: str,
 
 def mamba_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
                 tp_axis: Optional[str] = None,
-                fused_inference: bool = False,
                 sp_axis: Optional[str] = None, sp_shards: int = 1,
                 lora=None) -> jax.Array:
     """One (Bi)Mamba mixer over ``x: [B, L, d]`` (B may include folded
@@ -372,13 +370,17 @@ def mamba_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
 
     Sequence (context) parallelism: when ``sp_axis`` names a mesh axis over
     which the L axis is sharded, the conv exchanges a K-1-row halo with the
-    neighbouring shard (ppermute) and the scan runs the two-pass
-    scan-correct sharded kernel (ops/seq_parallel.py, Pallas-based
-    regardless of ``cfg.scan_impl``; interpret mode off-TPU). Requires
-    bidirectional ``add``, tied in_proj, and no tensor axis.
+    neighbouring shard (ppermute) and the scan runs the two-pass seeded
+    scan (ops/seq_parallel.py). Requires bidirectional ``add``, tied
+    in_proj, and no tensor axis.
+
+    Flip-free bidirectional path: the reverse direction uses an anticausal
+    conv (== flip∘causal-conv∘flip, computed without the flips) and the scan
+    runs it right-to-left natively, with the low-rank dt projection fused
+    into the scan, so no [.., L, d_inner] tensor is materialised
+    time-reversed and the full-width dt never exists.
     """
     G = cfg.n_directions
-    N, R = cfg.d_state, cfg.dt_rank
     cdtype = x.dtype
     if lora is not None and (tp_axis is not None or sp_axis is not None):
         raise NotImplementedError(
@@ -387,86 +389,13 @@ def mamba_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
     if tp_axis is not None:
         x = _tp_boundary(x, tp_axis)
 
-    in_x = p["in_proj_x"]
-
-    impl = cfg.scan_impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "associative"
-    if (impl == "pallas" and jax.default_backend() == "tpu"
-            and in_x.shape[-1] % 128):
-        # The Pallas backward kernels need a lane-aligned (128-multiple)
-        # d_inner; the forward compiles for any size, but kernel choice must
-        # be grad-agnostic. Only tiny smoke configs and odd tensor-parallel
-        # shardings miss this — every preset d_inner is a multiple of 128.
-        warnings.warn(
-            f"d_inner={p['in_proj_x'].shape[-1]} is not a multiple of 128; "
-            "falling back from the Pallas kernel to the associative scan")
-        impl = "associative"
-    if impl == "pallas" and x.shape[1] % 8:
-        # The time-chunk picker (ops/pallas_scan.pick_bl) handles any L
-        # that is a multiple of the 8-row sublane tile (e.g. the PlantCAD2
-        # LoRA recipe's 600-bp windows); lengths that aren't have no legal
-        # tile at all.
-        warnings.warn(
-            f"sequence length {x.shape[1]} is not a multiple of 8; falling "
-            "back from the Pallas kernel to the associative scan")
-        impl = "associative"
-    # Flip-free bidirectional path: the reverse direction uses an anticausal
-    # conv (== flip∘causal-conv∘flip, computed without the flips) and scans
-    # right-to-left natively inside the Pallas kernel, so no [.., L, d_inner]
-    # tensor is ever materialised time-reversed (~4 ms/layer of HBM traffic
-    # at l20 batch 128). Pure-JAX impls keep the explicit-flip formulation.
-    fused = impl == "pallas" and G == 2
-
     sp = sp_axis is not None
-    tied = in_x.shape[0] == 1  # [Gio, d, di]; tied = released path
+    tied = p["in_proj_x"].shape[0] == 1  # [Gio, d, di]; tied = released path
     if sp and not (G == 2 and tp_axis is None and tied
                    and cfg.bidirectional_strategy == "add"):
-        # Context parallelism always uses the Pallas-based seq-sharded scan
-        # (interpret mode off-TPU), independent of cfg.scan_impl.
         raise NotImplementedError(
             "sequence parallelism needs bidirectional 'add', tied in_proj, "
             "and no tensor axis")
-
-    if (not sp and fused and tp_axis is None and tied
-            and cfg.bidirectional_strategy == "add"
-            and not _USE_GATED_KERNEL and lora is None):
-        # (lora is None: the whole-interior kernel hides the x_proj sites
-        # activation-path adapters must hook; LoRA training takes the
-        # decomposed path below.)
-        # Whole-mixer-interior kernel (in_proj + conv + x_proj + dt + scan
-        # fused): one pallas_call per direction, VMEM-resident
-        # intermediates; the in_proj x-projection runs per chunk on the
-        # MXU, which otherwise idles while the VPU scans, and the
-        # [B, L, d_inner] xi tensor never exists in HBM. Fully
-        # differentiable — under grad the forward falls back to einsum +
-        # the residual-emitting kernel and the backward chains the Pallas
-        # scan adjoint with the in_proj/x_proj/conv transposes
-        # (ops/pallas_mixer.bimamba_mixer_fused_x), so neither the forward
-        # nor the remat recompute rebuilds the decomposed intermediates.
-        from plantcaduceus_tpu.ops.pallas_mixer import (bimamba_mixer_fused,
-                                                        bimamba_mixer_fused_x)
-
-        scan_args = (p["conv_w"], p["conv_b"],
-                     p["x_proj_dt"], p["x_proj_B"], p["x_proj_C"],
-                     p["dt_proj_w"], p["dt_proj_b"], -jnp.exp(p["A_log"]),
-                     p["D"])
-        z = jnp.einsum("bld,di->bli", x, p["in_proj_z"][0].astype(cdtype))
-        if p["in_proj_x"].shape[-1] <= 768:
-            # In-kernel in_proj pays only while the scan dominates: the
-            # tied projection is shared by both directions outside the
-            # kernel but re-done per direction inside, so the doubled MXU
-            # work must hide under the VPU scan. Measured on v5e (batch
-            # 128): l20 +3%, l24 -2%, l28 -3%, l32 -4% -> fuse at
-            # d_inner <= 768 only.
-            y_gated = bimamba_mixer_fused_x(x, z, p["in_proj_x"][0],
-                                            *scan_args)
-        else:
-            xi0 = jnp.einsum("bld,di->bli", x,
-                             p["in_proj_x"][0].astype(cdtype))
-            y_gated = bimamba_mixer_fused(xi0, z, *scan_args)
-        return _maybe_psum(y_gated.astype(cdtype)
-                           @ p["out_proj"][0].astype(cdtype), tp_axis)
 
     # in_proj halves: [Gio, d, di]. Tied (Gio=1) is the released-model path.
     xi = _add_lora(jnp.einsum("bld,gdi->gbli", x, p["in_proj_x"].astype(cdtype)),
@@ -479,34 +408,15 @@ def mamba_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
     if sp:
         # Context-parallel conv: K-1-row halo exchange with the
         # neighbouring shard (ops/conv.halo_depthwise_conv_silu).
-        from plantcaduceus_tpu.ops.conv import halo_depthwise_conv_silu
-
-        xg = jnp.stack([
-            halo_depthwise_conv_silu(xi[0], conv_w[g], conv_b[g],
-                                     anticausal=(g == 1),
-                                     sp_axis=sp_axis, sp_shards=sp_shards)
-            for g in range(G)
-        ])  # [2, B, Llocal, di], natural time order
-    elif fused:
-        from plantcaduceus_tpu.ops.conv import depthwise_conv_xla
-
-        x_in = xi[0] if xi.shape[0] == 1 else None
-        xg = jnp.stack([
-            depthwise_conv_xla(x_in if x_in is not None else xi[g],
-                               conv_w[g], conv_b[g], activation="silu",
-                               anticausal=(g == 1))
-            for g in range(G)
-        ])  # [2, B, L, di], both directions in natural time order
+        conv = functools.partial(halo_depthwise_conv_silu, sp_axis=sp_axis,
+                                 sp_shards=sp_shards)
     else:
-        # Fold direction into the group axis: direction 1 sees reversed time.
-        if G == 2:
-            if xi.shape[0] == 1:
-                xg = jnp.concatenate([xi, jnp.flip(xi, axis=2)])
-            else:
-                xg = jnp.stack([xi[0], jnp.flip(xi[1], axis=1)])
-        else:
-            xg = xi  # [1, B, L, di]
-        xg = causal_conv1d(xg, conv_w, conv_b, activation="silu")
+        conv = functools.partial(depthwise_conv_xla, activation="silu")
+    xg = jnp.stack([
+        conv(xi[min(g, xi.shape[0] - 1)], conv_w[g], conv_b[g],
+             anticausal=(g == 1))
+        for g in range(G)
+    ])  # [G, B, L, di], every direction in natural time order
 
     # x_proj -> dt low-rank, B, C (contractions over d_inner: psum under TP).
     dt_lr = _maybe_psum_sharded_consumer(
@@ -522,56 +432,24 @@ def mamba_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
                   lora, "x_proj_C", xg, "gbli,gix->gblx", "gblx,gxn->gbln"),
         tp_axis)
 
+    scan_args = (xg, dt_lr, -jnp.exp(p["A_log"]), Bm, Cm, p["D"])
+    directions = tuple(g == 1 for g in range(G))
     if sp:
-        from plantcaduceus_tpu.ops.seq_parallel import (
-            selective_scan_seq_sharded)
-
         y = selective_scan_seq_sharded(
-            xg, dt_lr, -jnp.exp(p["A_log"]), Bm, Cm, p["D"],
-            p["dt_proj_b"], p["dt_proj_w"].astype(jnp.float32),
-            sp_axis, sp_shards, directions=(False, True),
-        )  # [2, B, Llocal, di], natural time order
-        align = lambda yg, g: yg
-    elif fused:
-        if (xi.shape[0] == 1 and cfg.bidirectional_strategy == "add"
-                and _USE_GATED_KERNEL):
-            # Alternative fully fused tied+add path: sum + gate inside the
-            # kernel. Measured slightly SLOWER on v5e than the split path
-            # (the scan kernel is VPU-saturated; the extra in-kernel gate
-            # work costs more than the saved HBM pass) — kept behind
-            # PCAD_GATED_KERNEL=1 for future hardware.
-            from plantcaduceus_tpu.ops.pallas_scan import bimamba_scan_gated
-
-            y_gated = bimamba_scan_gated(
-                xg, dt_lr, -jnp.exp(p["A_log"]), Bm, Cm, p["D"],
-                p["dt_proj_b"], p["dt_proj_w"].astype(jnp.float32),
-                z[0],  # raw gate; silu applied in-kernel
-            )
-            return _maybe_psum(
-                _add_lora(y_gated @ p["out_proj"][0].astype(cdtype),
-                          lora, "out_proj", y_gated,
-                          "bli,ir->blr", "blr,ro->blo", g=0), tp_axis)
-        from plantcaduceus_tpu.ops.pallas_scan import selective_scan_pallas
-
-        y = selective_scan_pallas(
-            xg, dt_lr, -jnp.exp(p["A_log"]), Bm, Cm, p["D"],
-            dt_bias=p["dt_proj_b"], dt_proj_w=p["dt_proj_w"].astype(jnp.float32),
-            directions=(False, True),
-        )  # [2, B, L, di], outputs aligned in natural time order
-        align = lambda yg, g: yg
+            *scan_args, p["dt_proj_b"], p["dt_proj_w"].astype(jnp.float32),
+            sp_axis, sp_shards, directions=directions, impl=cfg.scan_impl)
     else:
-        dt = jnp.einsum("gblr,gri->gbli", dt_lr, p["dt_proj_w"].astype(cdtype))
         y = selective_scan(
-            xg, dt, -jnp.exp(p["A_log"]), Bm, Cm, p["D"],
-            dt_bias=p["dt_proj_b"], dt_softplus=True, impl=impl,
-        )  # [G, B, L, di]
-        align = lambda yg, g: yg if g == 0 else jnp.flip(yg, axis=1)
+            *scan_args, dt_bias=p["dt_proj_b"],
+            dt_proj_w=p["dt_proj_w"].astype(jnp.float32),
+            directions=directions, impl=cfg.scan_impl)
+    # y: [G, B, L, di], natural time order
 
     gate = jax.nn.silu(z)  # [Gio, B, L, di]
 
-    if G == 2 and xi.shape[0] == 1 and cfg.bidirectional_strategy == "add":
+    if G == 2 and tied and cfg.bidirectional_strategy == "add":
         # Tied+add fast path: share the gate, single out_proj.
-        y_sum = (y[0] + align(y[1], 1)) * gate[0]
+        y_sum = (y[0] + y[1]) * gate[0]
         return _maybe_psum(
             _add_lora(y_sum @ p["out_proj"][0].astype(cdtype),
                       lora, "out_proj", y_sum,
@@ -580,9 +458,8 @@ def mamba_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
     # General path: per-direction gate + out_proj, then combine.
     outs = []
     for g in range(G):
-        yg = align(y[g], g)
         zg = gate[min(g, gate.shape[0] - 1)]
-        og = yg * zg
+        og = y[g] * zg
         W = p["out_proj"][min(g, p["out_proj"].shape[0] - 1)].astype(cdtype)
         outs.append(_maybe_psum(
             _add_lora(og @ W, lora, "out_proj", og,
@@ -596,13 +473,12 @@ def mamba_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
 
 def mamba2_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
                  tp_axis: Optional[str] = None,
-                 fused_inference: bool = False,
                  sp_axis: Optional[str] = None, sp_shards: int = 1,
                  lora=None) -> jax.Array:
     """One (Bi)Mamba-2 (SSD) mixer over ``x: [B, L, d]``.
 
     Same stream/direction folding as :func:`mamba_mixer`; the recurrence is
-    the MXU chunked-matmul SSD (ops/ssd.py) instead of the VPU selective
+    the matmul-shaped chunked SSD (ops/ssd.py) instead of the selective
     scan. The reverse direction runs natively anticausal (conv + SSD) — no
     time flips. Per direction: gated RMSNorm(y * silu(z)) before the (tied)
     out_proj, following mamba_ssm's Mamba2 module structure.
@@ -628,9 +504,6 @@ def mamba2_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
         raise NotImplementedError(
             "activation-path LoRA does not compose with tensor/sequence "
             "axes; merge adapters (train.lora.merge_lora) instead")
-    from plantcaduceus_tpu.ops.conv import depthwise_conv_xla
-    from plantcaduceus_tpu.ops.ssd import ssd_chunked
-
     G = cfg.n_directions
     N = cfg.d_state
     # Local (possibly tensor-sharded) sizes come from the weights.
@@ -658,121 +531,63 @@ def mamba2_mixer(p: Params, x: jax.Array, cfg: CaduceusConfig,
                    lora, "in_proj_dt", x, "bld,gdr->gblr", "gblr,grh->gblh")
     B_, L_ = x.shape[0], x.shape[1]
 
-    from plantcaduceus_tpu.ops.pallas_ssd import supported
-
-    impl = cfg.scan_impl
-    if impl in ("auto", "pallas"):
-        impl = ("pallas" if jax.default_backend() == "tpu" and supported(
-            (G, B_, L_, H, Pd), (NG, N), cfg.chunk_size) else "xla")
-    else:
-        impl = "xla"
+    select_ssd_impl(jax.default_backend())
     A = -jnp.exp(p["A_log"])
 
     sp = sp_axis is not None
 
-    if impl == "pallas" and tp_axis is None and not sp:
-        # Whole-interior fused kernel per direction (conv + SSD + gated
-        # norm in VMEM — ops/pallas_mixer2.py): HBM traffic is the
-        # projections' inputs/outputs only. Serves BOTH inference and
-        # training: under grad the forward re-runs as the residual-emitting
-        # kernel and the backward chains the Pallas SSD adjoint with the
-        # conv/norm transposes — no decomposed [B, L, d_inner] rebuild in
-        # forward or remat recompute (the mamba1 fused-mixer pattern).
-        # LoRA composes freely: every mamba2 adapter site (the five
-        # projections + out_proj) lives OUTSIDE the interior.
-        from plantcaduceus_tpu.ops.pallas_mixer2 import mamba2_mixer_interior
-
-        outs = [
-            mamba2_mixer_interior(
-                xi[min(g, xi.shape[0] - 1)], z[min(g, z.shape[0] - 1)],
-                Braw[g], Craw[g], dt[g],
-                p["conv_x_w"][g], p["conv_x_b"][g],
-                p["conv_B_w"][g], p["conv_B_b"][g],
-                p["conv_C_w"][g], p["conv_C_b"][g],
-                p["mixer_norm_weight"][min(
-                    g, p["mixer_norm_weight"].shape[0] - 1)],
-                A[g], p["D"][g], p["dt_bias"][g],
-                d_state=N, eps=cfg.norm_epsilon, chunk=cfg.chunk_size,
-                reverse=g == 1)
+    if sp:
+        conv = functools.partial(halo_depthwise_conv_silu, sp_axis=sp_axis,
+                                 sp_shards=sp_shards)
+    else:
+        conv = functools.partial(depthwise_conv_xla, activation="silu")
+    xs, Bs, Cs = [], [], []
+    for g in range(G):
+        anti = g == 1
+        x_in = xi[0] if xi.shape[0] == 1 else xi[g]
+        xs.append(conv(x_in, p["conv_x_w"][g].astype(cdtype),
+                       p["conv_x_b"][g].astype(cdtype), anticausal=anti))
+        Bs.append(conv(Braw[g], p["conv_B_w"][g].astype(cdtype),
+                       p["conv_B_b"][g].astype(cdtype), anticausal=anti))
+        Cs.append(conv(Craw[g], p["conv_C_w"][g].astype(cdtype),
+                       p["conv_C_b"][g].astype(cdtype), anticausal=anti))
+    if sp:
+        y = [
+            ssd_dir_seq_sharded(
+                xs[g], dt[g], A[g], Bs[g].reshape(B_, L_, NG, N),
+                Cs[g].reshape(B_, L_, NG, N), p["D"][g], p["dt_bias"][g],
+                cfg.chunk_size, g == 1, sp_axis, sp_shards)
             for g in range(G)
         ]
     else:
-        def sp_conv(inp, w, b, anti):
-            # Context-parallel conv shared with mamba_mixer.
-            from plantcaduceus_tpu.ops.conv import halo_depthwise_conv_silu
+        y5 = ssd_chunked(
+            jnp.stack(xs).reshape(G, B_, L_, H, Pd), dt, A,
+            jnp.stack(Bs).reshape(G, B_, L_, NG, N),
+            jnp.stack(Cs).reshape(G, B_, L_, NG, N), p["D"],
+            dt_bias=p["dt_bias"], chunk=cfg.chunk_size,
+            directions=tuple(g == 1 for g in range(G)),
+        )
+        y = [y5[g].reshape(B_, L_, H * Pd) for g in range(G)]
 
-            return halo_depthwise_conv_silu(inp, w, b, anticausal=anti,
-                                            sp_axis=sp_axis,
-                                            sp_shards=sp_shards)
-
-        conv = sp_conv if sp else (
-            lambda inp, w, b, anti: depthwise_conv_xla(
-                inp, w, b, activation="silu", anticausal=anti))
-        xs, Bs, Cs = [], [], []
-        for g in range(G):
-            anti = g == 1
-            x_in = xi[0] if xi.shape[0] == 1 else xi[g]
-            xs.append(conv(
-                x_in, p["conv_x_w"][g].astype(cdtype),
-                p["conv_x_b"][g].astype(cdtype), anti))
-            Bs.append(conv(
-                Braw[g], p["conv_B_w"][g].astype(cdtype),
-                p["conv_B_b"][g].astype(cdtype), anti))
-            Cs.append(conv(
-                Craw[g], p["conv_C_w"][g].astype(cdtype),
-                p["conv_C_b"][g].astype(cdtype), anti))
-        if sp:
-            from plantcaduceus_tpu.ops.ssd_seq_parallel import (
-                ssd_dir_seq_sharded)
-
-            y = [
-                ssd_dir_seq_sharded(
-                    xs[g], dt[g], A[g], Bs[g].reshape(B_, L_, NG, N),
-                    Cs[g].reshape(B_, L_, NG, N), p["D"][g], p["dt_bias"][g],
-                    cfg.chunk_size, g == 1, sp_axis, sp_shards, impl=impl)
-                for g in range(G)
-            ]
-        elif impl == "pallas":
-            # Tensor-parallel path (the fused interior would hide the
-            # norm's cross-shard reduction): Pallas SSD + hand-written
-            # adjoint; convs/gate/norm stay XLA ops.
-            from plantcaduceus_tpu.ops.pallas_ssd import ssd_dir
-
-            y = [
-                ssd_dir(xs[g], dt[g], A[g], Bs[g].reshape(B_, L_, NG, N),
-                        Cs[g].reshape(B_, L_, NG, N), p["D"][g],
-                        p["dt_bias"][g], cfg.chunk_size, g == 1)
-                for g in range(G)
-            ]
+    gate = jax.nn.silu(z)  # [Gio, B, L, di]
+    outs = []
+    for g in range(G):
+        zg = gate[min(g, gate.shape[0] - 1)]
+        wn = p["mixer_norm_weight"][min(
+            g, p["mixer_norm_weight"].shape[0] - 1)]
+        u = y[g].astype(cdtype) * zg
+        if tp_axis is None:
+            outs.append(rms_norm(u, wn.astype(cdtype), cfg.norm_epsilon))
         else:
-            y5 = ssd_chunked(
-                jnp.stack(xs).reshape(G, B_, L_, H, Pd), dt, A,
-                jnp.stack(Bs).reshape(G, B_, L_, NG, N),
-                jnp.stack(Cs).reshape(G, B_, L_, NG, N), p["D"],
-                dt_bias=p["dt_bias"], chunk=cfg.chunk_size,
-                directions=tuple(g == 1 for g in range(G)),
-            )
-            y = [y5[g].reshape(B_, L_, H * Pd) for g in range(G)]
-
-        gate = jax.nn.silu(z)  # [Gio, B, L, di]
-        outs = []
-        for g in range(G):
-            zg = gate[min(g, gate.shape[0] - 1)]
-            wn = p["mixer_norm_weight"][min(
-                g, p["mixer_norm_weight"].shape[0] - 1)]
-            u = y[g].astype(cdtype) * zg
-            if tp_axis is None:
-                outs.append(rms_norm(u, wn.astype(cdtype), cfg.norm_epsilon))
-            else:
-                # Gated RMS norm over the FULL (tensor-sharded) d_inner: the
-                # mean-of-squares is a collective whose output feeds every
-                # shard, so its backward psums (sharded-consumer rule).
-                uf = u.astype(jnp.float32)
-                ss = _maybe_psum_sharded_consumer(
-                    jnp.sum(uf * uf, axis=-1, keepdims=True), tp_axis)
-                ms = ss / cfg.d_inner
-                outs.append((uf * jax.lax.rsqrt(ms + cfg.norm_epsilon))
-                            .astype(cdtype) * wn.astype(cdtype))
+            # Gated RMS norm over the FULL (tensor-sharded) d_inner: the
+            # mean-of-squares is a collective whose output feeds every
+            # shard, so its backward psums (sharded-consumer rule).
+            uf = u.astype(jnp.float32)
+            ss = _maybe_psum_sharded_consumer(
+                jnp.sum(uf * uf, axis=-1, keepdims=True), tp_axis)
+            ms = ss / cfg.d_inner
+            outs.append((uf * jax.lax.rsqrt(ms + cfg.norm_epsilon))
+                        .astype(cdtype) * wn.astype(cdtype))
     if G == 2 and p["out_proj"].shape[0] == 1 \
             and cfg.bidirectional_strategy == "add":
         # Tied+add fast path: sum the normed streams, one out_proj matmul.
@@ -808,12 +623,15 @@ def embed_residual(params: Params, input_ids: jax.Array, cfg: CaduceusConfig,
     if cfg.rcps:
         ids = jnp.concatenate(
             [input_ids, rc_ids(input_ids, cfg, sp_axis, sp_shards)], axis=0)
-    hidden = params["embedding"].astype(dtype)[ids]  # [SB, L, d]
+    # Gather rows of the fp32 table, then cast: the backward's scatter-add
+    # then accumulates in fp32 (in bf16 it loses the embedding gradient's
+    # low bits over thousands of tokens per row).
+    hidden = params["embedding"][ids].astype(dtype)  # [SB, L, d]
     return hidden.astype(jnp.float32 if cfg.residual_in_fp32 else dtype)
 
 
 def make_block_fn(cfg: CaduceusConfig, dtype=jnp.bfloat16, *,
-                  tp_axis: Optional[str] = None, fused_inference: bool = False,
+                  tp_axis: Optional[str] = None,
                   sp_axis: Optional[str] = None, sp_shards: int = 1,
                   collect_layers: bool = False, remat: bool = False):
     """One residual block as a ``lax.scan`` body over stacked layer params:
@@ -822,13 +640,12 @@ def make_block_fn(cfg: CaduceusConfig, dtype=jnp.bfloat16, *,
 
     ``remat=True`` rematerialises the block in the backward pass: activation
     memory drops from O(n_layer * L * d) to O(L * d) at ~33% extra FLOPs —
-    the standard TPU HBM trade (jax.checkpoint composes with lax.scan)."""
+    the standard device-memory trade (jax.checkpoint composes with lax.scan)."""
     mixer_fn = mamba2_mixer if cfg.ssm_variant == "mamba2" else mamba_mixer
 
     def block_fn(res, lp):
         normed = _norm(res.astype(dtype), lp["norm_weight"], cfg)
         out = mixer_fn(lp, normed, cfg, tp_axis=tp_axis,
-                       fused_inference=fused_inference,
                        sp_axis=sp_axis, sp_shards=sp_shards)
         y = res.astype(dtype) if collect_layers else None
         return res + out.astype(res.dtype), y
@@ -838,7 +655,7 @@ def make_block_fn(cfg: CaduceusConfig, dtype=jnp.bfloat16, *,
 
 def backbone(params: Params, input_ids: jax.Array, cfg: CaduceusConfig,
              dtype=jnp.bfloat16, tp_axis: Optional[str] = None,
-             remat: bool = False, fused_inference: bool = False,
+             remat: bool = False,
              sp_axis: Optional[str] = None, sp_shards: int = 1,
              collect_layers: bool = False, lora=None):
     """Run embedding + n_layer blocks + final norm.
@@ -856,7 +673,6 @@ def backbone(params: Params, input_ids: jax.Array, cfg: CaduceusConfig,
                               sp_axis=sp_axis, sp_shards=sp_shards)
     if lora is None:
         block_fn = make_block_fn(cfg, dtype, tp_axis=tp_axis,
-                                 fused_inference=fused_inference,
                                  sp_axis=sp_axis, sp_shards=sp_shards,
                                  collect_layers=collect_layers, remat=remat)
         residual, per_layer = jax.lax.scan(block_fn, residual,
@@ -930,7 +746,6 @@ def forward(
     all_hidden_states: bool = False,
     tp_axis: Optional[str] = None,
     remat: bool = False,
-    fused_inference: bool = False,
     sp_axis: Optional[str] = None,
     sp_shards: int = 1,
 ) -> Dict[str, jax.Array]:
@@ -941,18 +756,11 @@ def forward(
     array (entry k = block k's residual-stream input, last entry = the
     post-norm final state == ``hidden_states``) — the intermediate-layer
     API of AutoModelForMaskedLM(output_hidden_states=True).
-    ``fused_inference`` selects mamba1's in-kernel-in_proj variant (the
-    inference engine sets it). Both variants' whole-mixer-interior kernels
-    have native Pallas backwards and serve training too; mamba2's fused
-    interior engages whenever the Pallas impl is selected (no tensor/
-    sequence axis), for training and inference alike — under grad it
-    re-runs as the residual-emitting kernel feeding the hand-written SSD
-    adjoint (ops/pallas_mixer2.py). ``sp_axis``/``sp_shards``
-    enable context parallelism: call inside shard_map with the L axis of
+    ``sp_axis``/``sp_shards`` enable context parallelism: call inside shard_map with the L axis of
     ``input_ids`` sharded over that mesh axis; logits come back sharded the
     same way."""
     h_work = backbone(params, input_ids, cfg, dtype=dtype, tp_axis=tp_axis,
-                      remat=remat, fused_inference=fused_inference,
+                      remat=remat,
                       sp_axis=sp_axis, sp_shards=sp_shards,
                       collect_layers=all_hidden_states)
     per_layer = None

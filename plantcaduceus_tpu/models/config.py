@@ -29,7 +29,7 @@ PRESETS: Dict[str, dict] = {
 
 # SSD (Mamba-2) variants of every size — beyond the reference (which is
 # Mamba-1 only): scalar-per-head decay turns the recurrence into chunked
-# matmuls on the MXU instead of a VPU-bound scan (docs/DESIGN.md §5, ops/ssd.py).
+# matmuls instead of an elementwise scan (docs/DESIGN.md §5, ops/ssd.py).
 # d_state rises to 128 (the Mamba-2 default) because extra state is nearly
 # free in the matmul formulation.
 PRESETS.update({
@@ -67,15 +67,16 @@ class CaduceusConfig:
     # Token ids (defaults follow the CharacterTokenizer layout, SURVEY.md §2.5/B19):
     pad_token_id: int = 4
     mask_token_id: int = 3
-    # Kernel selection for the selective scan:
-    # auto (pallas on TPU, associative elsewhere) | associative | sequential | pallas
+    # Kernel selection for the selective scan (ops.selective_scan.
+    # select_scan_impl): auto (the Triton kernel on the GPU, the chunked XLA
+    # scan on the CPU) | triton (alias: pallas) | chunked | sequential |
+    # associative. The SSD variants ignore it.
     scan_impl: str = "auto"
     # SSM variant: "mamba1" (selective scan — the released-model architecture)
-    # or "mamba2" (SSD, scalar-per-head decay, MXU chunked-matmul recurrence).
+    # or "mamba2" (SSD, scalar-per-head decay, chunked-matmul recurrence).
     ssm_variant: str = "mamba1"
     # mamba2 head size P (d_inner = n_heads * head_dim). 128 (vs mamba_ssm's
-    # default 64) so every per-head SSD dot is a full 128-lane MXU tile —
-    # the Pallas kernel requires P % 128 == 0 (ops/pallas_ssd.py).
+    # default 64): fewer, larger per-head SSD matmuls.
     head_dim: int = 128
     n_groups: int = 1      # mamba2: B/C groups shared across heads
     chunk_size: int = 128  # mamba2: SSD chunk length (L % chunk_size == 0)

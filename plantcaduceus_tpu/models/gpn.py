@@ -6,7 +6,7 @@ one-hot-style embedding, a stack of dilated conv layers (dilation cycling
 powers of two up to a cap), each followed by layernorm and a pointwise FFN
 with residuals, and the weighted-CE ``loss_weight`` forward that Caduceus
 mirrors. TPU-native: dilated depthwise+pointwise convs via
-lax.conv_general_dilated (MXU-friendly NCW layout handled by XLA).
+lax.conv_general_dilated (layout handled by XLA).
 """
 
 from __future__ import annotations

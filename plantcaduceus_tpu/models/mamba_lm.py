@@ -4,15 +4,15 @@ Rebuilds the capability of the reference's Lightning Mamba sanity harness and
 its use of ``mamba_ssm``'s autoregressive generation (SURVEY.md §2.3 B18:
 /root/reference/pretrain/llmlib/architectures/models/mamba/{base,mamba}.py —
 ``MambaLMHeadModel`` + ``mamba_ssm.utils.generation.decode``, bits-per-dim
-loss at base.py:35-48), TPU-native:
+loss at base.py:35-48), in JAX:
 
 * Training/prefill forward runs the same selective-scan stack as Caduceus
-  (``ops.selective_scan`` dispatch: Pallas on TPU, associative scan on CPU)
-  in one direction — causal conv, causal scan.
+  (``ops.selective_scan`` dispatch: the Triton kernel on the GPU, the
+  chunked XLA scan on the CPU) in one direction — causal conv, causal scan.
 * Decoding is the SSM's native O(1) recurrence: a per-layer cache of the
   conv tail (K-1 inputs) and the fp32 SSM state [d_inner, d_state]; one
-  ``step`` advances every layer with pure elementwise/VPU math plus the
-  small projections on the MXU — no growing KV cache, unlike attention.
+  ``step`` advances every layer with pure elementwise math plus the small
+  projections — no growing KV cache, unlike attention.
 * ``generate`` jit-compiles prefill + sampling as one ``lax.scan`` program —
   static shapes, no per-token Python dispatch.
 
@@ -33,6 +33,7 @@ import jax.numpy as jnp
 from plantcaduceus_tpu.ops.conv import depthwise_conv_xla
 from plantcaduceus_tpu.ops.norms import rms_norm
 from plantcaduceus_tpu.ops.selective_scan import selective_scan
+from plantcaduceus_tpu.ops.ssd import select_ssd_impl, ssd_dir
 
 Params = Dict[str, Any]
 
@@ -50,7 +51,7 @@ class MambaLmConfig:
     tie_word_embeddings: bool = True
     scan_impl: str = "auto"
     # "mamba1" (selective scan) or "mamba2" (SSD — scalar-per-head decay,
-    # MXU chunked recurrence; same variant axis as CaduceusConfig).
+    # matmul-shaped chunked recurrence; same variant axis as CaduceusConfig).
     ssm_variant: str = "mamba1"
     head_dim: int = 64     # mamba2: d_inner = n_heads * head_dim
     n_groups: int = 1      # mamba2: B/C groups shared across heads
@@ -197,10 +198,11 @@ def _mixer(lp: Params, x: jax.Array, cfg: MambaLmConfig, dtype) -> jax.Array:
     dt_lr = xg @ lp["x_proj_dt"].astype(dtype)
     Bm = (xg @ lp["x_proj_B"].astype(dtype)).astype(jnp.float32)
     Cm = (xg @ lp["x_proj_C"].astype(dtype)).astype(jnp.float32)
-    dt = dt_lr @ lp["dt_proj_w"].astype(dtype)
     y = selective_scan(
-        xg[None], dt[None], -jnp.exp(lp["A_log"][None]), Bm[None], Cm[None],
-        lp["D"][None], dt_bias=lp["dt_proj_b"][None], impl=cfg.scan_impl)[0]
+        xg[None], dt_lr[None], -jnp.exp(lp["A_log"][None]), Bm[None],
+        Cm[None], lp["D"][None], dt_bias=lp["dt_proj_b"][None],
+        dt_proj_w=lp["dt_proj_w"][None].astype(jnp.float32),
+        impl=cfg.scan_impl)[0]
     y = (y.astype(jnp.float32) * jax.nn.silu(z.astype(jnp.float32))
          ).astype(dtype)
     return y @ lp["out_proj"].astype(dtype)
@@ -210,10 +212,9 @@ def _mixer2(lp: Params, x: jax.Array, cfg: MambaLmConfig,
             dtype) -> jax.Array:
     """One causal SSD (Mamba-2) mixer over [B, L, d_model]: conv(x/B/C) +
     chunked SSD + gated RMSNorm + out_proj — the unidirectional analogue of
-    models.caduceus.mamba2_mixer's decomposed path."""
+    models.caduceus.mamba2_mixer."""
     B_, L_ = x.shape[:2]
-    H, N, NG = cfg.n_heads, cfg.d_state, cfg.n_groups
-    Pd = cfg.head_dim
+    N, NG = cfg.d_state, cfg.n_groups
     xi = x @ lp["in_proj_x"].astype(dtype)
     z = x @ lp["in_proj_z"].astype(dtype)
     dt = x @ lp["in_proj_dt"].astype(dtype)
@@ -227,24 +228,10 @@ def _mixer2(lp: Params, x: jax.Array, cfg: MambaLmConfig,
                             lp["conv_C_b"].astype(dtype), activation="silu")
     A = -jnp.exp(lp["A_log"])
 
-    from plantcaduceus_tpu.ops.pallas_ssd import supported
-
-    impl = cfg.scan_impl
-    if impl in ("auto", "pallas") and jax.default_backend() == "tpu" \
-            and supported((1, B_, L_, H, Pd), (NG, N), cfg.chunk_size):
-        from plantcaduceus_tpu.ops.pallas_ssd import ssd_dir
-
-        y = ssd_dir(xg, dt, A, Bc.reshape(B_, L_, NG, N),
-                    Cc.reshape(B_, L_, NG, N), lp["D"], lp["dt_bias"],
-                    cfg.chunk_size, False)
-    else:
-        from plantcaduceus_tpu.ops.ssd import ssd_chunked
-
-        y = ssd_chunked(
-            xg.reshape(1, B_, L_, H, Pd), dt[None], A[None],
-            Bc.reshape(1, B_, L_, NG, N), Cc.reshape(1, B_, L_, NG, N),
-            lp["D"][None], dt_bias=lp["dt_bias"][None],
-            chunk=cfg.chunk_size).reshape(B_, L_, H * Pd)
+    select_ssd_impl(jax.default_backend())
+    y = ssd_dir(xg, dt, A, Bc.reshape(B_, L_, NG, N),
+                Cc.reshape(B_, L_, NG, N), lp["D"], lp["dt_bias"],
+                cfg.chunk_size, False)
     u = y.astype(dtype) * jax.nn.silu(z)
     out = rms_norm(u, lp["mixer_norm_weight"].astype(dtype), cfg.norm_epsilon)
     return out @ lp["out_proj"].astype(dtype)

@@ -1,11 +1,11 @@
 """Attention ops for the baseline (BERT-family) models.
 
-TPU-native replacement for the reference's attention kernel zoo (SURVEY.md
-§2.5): the flash_attn CUDA wheel, the vendored 1.1k-line Triton kernel, and
-the xformers backends. At the reference's baseline sequence lengths (512 bp)
-attention fits VMEM comfortably, so the implementation is a fused-by-XLA
-einsum+softmax with additive bias — the Pallas flash treatment is reserved
-for the SSM scan, where the FLOPs actually are. Provides:
+Replacement for the reference's attention kernel zoo (SURVEY.md §2.5): the
+flash_attn CUDA wheel, the vendored 1.1k-line Triton kernel, and the
+xformers backends. Attention only serves the BERT/GPN baselines, at the
+reference's 512-bp windows, so the implementation is a fused-by-XLA
+einsum+softmax with additive bias — the hand-written kernel is reserved for
+the SSM scan, where the time actually goes. Provides:
 
 * ``multi_head_attention`` — bias-capable (ALiBi) bidirectional attention
 * ``alibi_bias`` — MosaicBERT's symmetric ALiBi bias, rebuilt on demand for
@@ -55,6 +55,15 @@ def local_window_mask(seq_len: int, window: int) -> jax.Array:
     return jnp.where(dist <= window, 0.0, -jnp.inf).astype(jnp.float32)
 
 
+def select_attention_impl(backend: str) -> str:
+    """The attention implementation for ``backend``: the plain XLA form on
+    ``gpu`` and ``cpu``. Any other backend is an error."""
+    if backend not in ("gpu", "cpu"):
+        raise ValueError(f"no attention implementation for backend "
+                         f"{backend!r} (gpu or cpu)")
+    return "xla"
+
+
 def multi_head_attention(
     q: jax.Array,
     k: jax.Array,
@@ -64,7 +73,6 @@ def multi_head_attention(
     causal: bool = False,
     alibi: bool = False,
     local_window: Optional[int] = None,
-    impl: str = "auto",
 ) -> jax.Array:
     """q, k, v: [B, L, H, hd]. bias: broadcastable to [B, H, L, L]
     (e.g. alibi_bias -> [H, L, L]). mask: additive, same broadcast.
@@ -72,30 +80,10 @@ def multi_head_attention(
 
     Structured bias forms — ``alibi=True`` (symmetric MosaicBERT ALiBi) and
     ``local_window`` — may be given instead of materialised bias/mask
-    arrays; on TPU (``impl='auto'``) they dispatch to the Pallas flash
-    kernel (ops.pallas_attention), which rebuilds them from block indices
-    in-kernel and never forms the [L, L] score matrix. ``impl`` forces a
-    backend: auto | flash | xla."""
+    arrays."""
+    select_attention_impl(jax.default_backend())
     if alibi and bias is not None:
         raise ValueError("pass either alibi=True or an explicit bias")
-    if impl == "auto":
-        structured = alibi or local_window is not None or causal
-        L = q.shape[1]
-        tileable = L <= 128 or L % 128 == 0
-        impl = ("flash" if (structured and bias is None and mask is None
-                            and tileable
-                            and jax.default_backend() == "tpu")
-                else "xla")
-    if impl == "flash":
-        if bias is not None or mask is not None:
-            raise ValueError("flash impl takes structured bias forms only "
-                             "(alibi/local_window/causal), not arrays")
-        from plantcaduceus_tpu.ops.pallas_attention import flash_attention
-
-        return flash_attention(
-            q, k, v,
-            alibi_slopes=alibi_slopes(q.shape[2]) if alibi else None,
-            causal=causal, local_window=local_window)
     if alibi:
         bias = alibi_bias(q.shape[2], q.shape[1])
     if local_window is not None:

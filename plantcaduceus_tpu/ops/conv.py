@@ -1,10 +1,8 @@
 """Short causal depthwise convolution — the Mamba conv prologue.
 
 Replaces the reference's ``causal_conv1d`` CUDA kernel
-(/root/reference/env/requirements.txt: causal-conv1d==1.4.0). With kernel
-width K=4 the convolution is cheapest on TPU as K shifted multiply-adds,
-which XLA fuses into the surrounding elementwise graph — no im2col, no
-explicit convolution op, no HBM round-trips.
+(its env/requirements.txt pins causal-conv1d==1.4.0) with XLA's
+depthwise convolution.
 """
 
 from __future__ import annotations
@@ -15,52 +13,6 @@ import jax
 import jax.numpy as jnp
 
 
-def causal_conv1d(
-    x: jax.Array,
-    w: jax.Array,
-    b: Optional[jax.Array] = None,
-    activation: Optional[str] = "silu",
-    anticausal: bool = False,
-) -> jax.Array:
-    """Depthwise causal 1-D convolution along the second-to-last axis.
-
-    x: [..., L, D]  activations
-    w: [..., D, K]  per-channel taps, tap K-1 multiplies the current step.
-       Leading axes of ``w``/``b`` (e.g. a direction group axis) must broadcast
-       against the leading axes of ``x``.
-    b: [..., D] bias or None.
-
-    Equivalent to torch ``nn.Conv1d(D, D, K, groups=D, padding=K-1)[..., :L]``
-    as used inside ``mamba_ssm.Mamba`` (see SURVEY.md §2.2).
-
-    ``anticausal=True`` computes ``flip_L(causal_conv(flip_L(x), w, b))``
-    without the flips — the reverse-direction conv of a bidirectional block
-    in natural time order (output at t looks at x[t .. t+K-1] through
-    reversed taps).
-    """
-    K = w.shape[-1]
-    L = x.shape[-2]
-    lpad, rpad = ((0, K - 1) if anticausal else (K - 1, 0))
-    pad = [(0, 0)] * (x.ndim - 2) + [(lpad, rpad), (0, 0)]
-    xp = jnp.pad(x, pad)
-
-    def _bcast(v):  # [*P, D] -> [*P, 1, ..., 1, D] matching x's rank
-        return v.reshape(v.shape[:-1] + (1,) * (x.ndim - v.ndim) + v.shape[-1:])
-
-    y = None
-    for k in range(K):
-        tap_w = w[..., K - 1 - k] if anticausal else w[..., k]
-        tap = xp[..., k : k + L, :] * _bcast(tap_w)
-        y = tap if y is None else y + tap
-    if b is not None:
-        y = y + _bcast(b)
-    if activation == "silu":
-        y = jax.nn.silu(y)
-    elif activation is not None:
-        raise ValueError(f"unsupported activation {activation!r}")
-    return y
-
-
 def depthwise_conv_xla(
     x: jax.Array,
     w: jax.Array,
@@ -68,10 +20,17 @@ def depthwise_conv_xla(
     activation: Optional[str] = "silu",
     anticausal: bool = False,
 ) -> jax.Array:
-    """Same contract as :func:`causal_conv1d` for ``x: [B, L, D]`` /
-    ``w: [D, K]``, lowered through XLA's native depthwise convolution —
-    measurably cheaper on TPU than the K shifted multiply-adds (which XLA
-    fails to fuse into one pass over the activation)."""
+    """Depthwise causal 1-D convolution of ``x: [B, L, D]`` with per-channel
+    taps ``w: [D, K]`` (tap K-1 multiplies the current step) and bias
+    ``b: [D]``, through XLA's native depthwise convolution.
+
+    Equivalent to torch ``nn.Conv1d(D, D, K, groups=D, padding=K-1)[..., :L]``
+    as used inside ``mamba_ssm.Mamba`` (see SURVEY.md §2.2).
+
+    ``anticausal=True`` computes ``flip_L(causal_conv(flip_L(x), w, b))``
+    without the flips — the reverse-direction conv of a bidirectional block
+    in natural time order (output at t looks at x[t .. t+K-1] through
+    reversed taps)."""
     K = w.shape[-1]
     taps = jnp.flip(w, -1) if anticausal else w
     # WIO with feature_group_count=D: [K, 1, D]

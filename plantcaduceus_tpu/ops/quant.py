@@ -1,27 +1,13 @@
-"""int8 matmul primitives — a measured, REJECTED model-level experiment.
+"""int8 matmul primitives — kept from a rejected model-level experiment.
 
-The v5e MXU runs int8xint8->int32 ~1.5x faster than bf16 at the mixer
-projection shapes (measured r3: a materialised [65536,1024]x[1024,2048]
-dot incl. rescale-to-bf16 epilogue runs 1.65 ms int8 vs 2.48 ms bf16).
-Two full int8 projection paths were built and benchmarked end-to-end on
-the scoring engine across rounds:
-
-* r2, dynamic per-tensor activation scales: l32 120 vs 138 win/s — the
-  per-call amax reduction + quantize passes cost more HBM time than the
-  MXU time saved.
-* r3, static per-layer scales calibrated on the first real batch (the
-  quantize becomes a producer-fused elementwise op; no amax pass): l28
-  0.94x, l32 0.96x of bf16 — closer, still a loss. An isolated full-mixer
-  A/B showed int8 winning only ~2.4% per layer: at these shapes the VPU
-  selective scan dominates the mixer (Amdahl ceiling ~1.26x even with
-  free projections), and the model-level residue never recovered the
-  kernel-level win.
-
-The engine/CLI path was therefore removed (VERDICT r2 #5: win or cut).
-What remains here are the tested primitives (weight quant, static/dynamic
-activation quant, int8 MXU matmul with fused rescale) for future hardware
-where the MXU:VPU balance differs — e.g. the SSD variants' chunked-matmul
-recurrence, where projections are a larger share of the forward.
+An int8 projection path for the scoring engine (dynamic per-tensor, then
+static per-layer activation scales) was built and removed earlier because
+it lost end to end: the projections were too small a share of the mixer,
+which the selective scan dominates. On the GPU it is not measured. What
+remains are the tested primitives (weight quant, static/dynamic activation
+quant, int8 matmul with fused rescale) — worth measuring again where the
+projections are a larger share, e.g. the SSD variants' chunked-matmul
+recurrence, on tensor cores that run int8 at twice their bf16 rate.
 """
 
 from __future__ import annotations
@@ -58,7 +44,7 @@ def quantize_activation(x: jax.Array) -> Tuple[jax.Array, jax.Array]:
 
 def int8_dense(x: jax.Array, w8: jax.Array, w_scale: jax.Array,
                out_dtype=jnp.float32) -> jax.Array:
-    """y = x @ dequant(w8): int8 MXU matmul with f32 rescale.
+    """y = x @ dequant(w8): int8 matmul with f32 rescale.
 
     x: [..., d_in]; w8: [d_in, d_out] int8; w_scale: [1, d_out] f32."""
     x8, sx = quantize_activation(x)
@@ -81,7 +67,7 @@ def quantize_activation_static(x: jax.Array, a_scale: jax.Array) -> jax.Array:
 
 def int8_matmul(x8: jax.Array, w8: jax.Array, scale: jax.Array,
                 out_dtype=jnp.float32) -> jax.Array:
-    """[..., d_in] int8 @ [d_in, d_out] int8 -> int32 MXU accum, rescaled by
+    """[..., d_in] int8 @ [d_in, d_out] int8 -> int32 accumulation, rescaled by
     ``scale`` (= a_scale * w_scale, broadcastable over the output) in the
     dot's epilogue."""
     lead = x8.shape[:-1]

@@ -21,85 +21,41 @@ Two-pass scan-correct structure per direction group, inside ``shard_map``:
 Cost: 2x the scan compute + two tiny collectives — the standard trade for
 sequence lengths that exceed one chip.
 
-Gradients: the structure is differentiated compositionally. The only
-primitive that needs a custom VJP is the seeded scan emitting (y, hfin) —
-``_sp_scan_op`` below, backed by the Pallas backward kernel with the
-``hfin`` cotangent entering as the adjoint seed ``g0`` and the initial
--state gradient ``dh0`` coming back out (ops/pallas_scan.py). Everything
-else (the stitch, the decay product, the all_gather) is plain JAX, so
-``jax.grad`` through ``shard_map`` inserts the adjoint collectives
-automatically — no hand-written cross-shard adjoint stitching.
+Both passes run the seeded form of the selected scan implementation
+(``ops.selective_scan``: the Triton kernel on the GPU, the chunked XLA scan
+on the CPU), which takes an initial state and returns the final one and is
+differentiable in both. Everything else (the stitch, the decay product, the
+all_gather) is plain JAX, so ``jax.grad`` through ``shard_map`` inserts the
+adjoint collectives automatically — no hand-written cross-shard adjoint.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 
-from plantcaduceus_tpu.ops.pallas_scan import (DEF_BD, DEF_BL, train_bl,
-                                               _pallas_bwd_group,
-                                               _pallas_scan_group)
+from plantcaduceus_tpu.ops.selective_scan import (select_scan_impl,
+                                                  selective_scan)
 
 
 def _decay_product(dt, A, dt_bias, dt_proj_w):
-    """P[b, d, n] = prod_t exp(softplus(dt)[b,t,d] * A[d,n]) over the LOCAL
-    chunk, as exp of the time-summed rates. Direction-independent (it is a
-    product over the whole chunk either way). Differentiable JAX."""
+    """P[g, b, d, n] = prod_t exp(softplus(dt)[g,b,t,d] * A[g,d,n]) over the
+    LOCAL chunk, as exp of the time-summed rates. Direction-independent (it
+    is a product over the whole chunk either way). Differentiable JAX."""
     f32 = jnp.float32
     dtr = dt.astype(f32)
     if dt_proj_w is not None:
         dtr = jnp.einsum("gblr,gri->gbli", dtr, dt_proj_w.astype(f32))
     s = jnp.sum(jax.nn.softplus(dtr + dt_bias.astype(f32)[:, None, None, :]),
-                axis=2)                                   # [1, B, D]
-    return jnp.exp(s[0][..., None] * A[0].astype(f32)[None])  # [B, D, N]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(9, 10, 11, 12))
-def _sp_scan_op(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, h0,
-                bl, bd, reverse, has_dtw):
-    """Seeded single-group scan returning (y, final state). All args are
-    group-shaped ([1, B, L, ...]) except h0 [B, D, N]."""
-    y, _, hfin = _pallas_scan_group(
-        x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w if has_dtw else None,
-        bl, bd, 1, 1, reverse=reverse, emit_hb=False, h0=h0, emit_hfin=True)
-    return y, hfin
-
-
-def _sp_scan_op_fwd(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, h0,
-                    bl, bd, reverse, has_dtw):
-    y, hb, hfin = _pallas_scan_group(
-        x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w if has_dtw else None,
-        train_bl(x.shape[2], x.shape[3]), bd, 1, 1, reverse=reverse,
-        emit_hb=True, h0=h0, emit_hfin=True)
-    return (y, hfin), (x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, hb)
-
-
-def _sp_scan_op_bwd(bl, bd, reverse, has_dtw, res, cts):
-    x, dt, A, Bm, Cm, Dskip, dt_bias, dt_proj_w, hb = res
-    gy, ghfin = cts
-    # reverse is native in the backward kernel; inputs/outputs stay in
-    # natural time order (h0/g0/dh0 are processing-order boundary states).
-    out = _pallas_bwd_group(
-        x, dt, A, Bm, Cm, Dskip, dt_bias,
-        dt_proj_w if has_dtw else None,
-        gy, hb, train_bl(x.shape[2], x.shape[3]), bd, has_dtw,
-        g0=ghfin.astype(jnp.float32), emit_dh0=True, reverse=reverse)
-    dx, ddt, dA, dB, dC, dD, ddtb, dW, dh0 = out
-    return (dx.astype(x.dtype), ddt.astype(dt.dtype), dA,
-            dB.astype(Bm.dtype), dC.astype(Cm.dtype), dD, ddtb,
-            dW if has_dtw else jnp.zeros_like(dt_proj_w),
-            dh0.astype(jnp.float32))
-
-
-_sp_scan_op.defvjp(_sp_scan_op_fwd, _sp_scan_op_bwd)
+                axis=2)                                   # [G, B, D]
+    return jnp.exp(s[..., None] * A.astype(f32)[:, None])  # [G, B, D, N]
 
 
 def _stitch_h0(aprod, hfin, axis_name: str, n_shards: int, reverse: bool):
     """Exclusive cross-shard state: h0 for THIS device. aprod/hfin are the
-    local [B, D, N] pass-1 results."""
+    local [B, D, N] pass-1 results of one group."""
     pf = jax.lax.all_gather(
         jnp.stack([aprod, hfin]), axis_name)          # [n, 2, B, D, N]
     idx = jax.lax.axis_index(axis_name)
@@ -124,31 +80,31 @@ def selective_scan_seq_sharded(
     seq_axis: str,
     n_shards: int,
     directions: Optional[Sequence[bool]] = None,
-    bl: int = DEF_BL,
-    bd: int = DEF_BD,
+    impl: str = "auto",
 ) -> jax.Array:
     """Run inside shard_map with the L axis of x/dt/Bm/Cm sharded over
     ``seq_axis`` (arguments hold the LOCAL chunk). Same group semantics as
-    selective_scan_pallas. Returns the local y chunk. Differentiable:
-    ``jax.grad`` through the enclosing shard_map yields gradients identical
-    to the single-device scan (tests/test_seq_parallel.py)."""
+    ``ops.selective_scan.selective_scan``. Returns the local y chunk.
+    Differentiable: ``jax.grad`` through the enclosing shard_map yields
+    gradients identical to the single-device scan
+    (tests/test_seq_parallel.py). The reference impls (sequential,
+    associative) have no seeded form; they run the chunked scan here."""
+    impl = select_scan_impl(jax.default_backend(), impl)
+    if impl not in ("triton", "chunked"):
+        impl = "chunked"
     G = x.shape[0]
-    has_dtw = dt_proj_w is not None
-    ys = []
-    for g in range(G):
-        rev = bool(directions[g]) if directions is not None else False
-        sel = lambda t: (t[g : g + 1] if t is not None else None)
-        dtw = sel(dt_proj_w) if has_dtw else \
-            jnp.zeros((1, 1, x.shape[-1]), jnp.float32)
-        args = (sel(x), sel(dt), sel(A), sel(Bm), sel(Cm), sel(Dskip),
-                sel(dt_bias), dtw)
-        aprod = _decay_product(sel(dt), sel(A), sel(dt_bias),
-                               sel(dt_proj_w) if has_dtw else None)
-        zero_h0 = jnp.zeros_like(aprod)
-        # pass 1: local scan from zero; keep only the final state
-        _, hfin = _sp_scan_op(*args, zero_h0, bl, bd, rev, has_dtw)
-        h0 = _stitch_h0(aprod, hfin, seq_axis, n_shards, rev)
-        # pass 2: re-scan seeded with the stitched state
-        y_g, _ = _sp_scan_op(*args, h0, bl, bd, rev, has_dtw)
-        ys.append(y_g)
-    return jnp.concatenate(ys, axis=0)
+    dirs = tuple(bool(d) for d in directions) if directions else (False,) * G
+
+    def scan(h0):
+        return selective_scan(x, dt, A, Bm, Cm, Dskip, dt_bias=dt_bias,
+                              dt_proj_w=dt_proj_w, directions=dirs, h0=h0,
+                              impl=impl, return_final_state=True)
+
+    aprod = _decay_product(dt, A, dt_bias, dt_proj_w)
+    # pass 1: local scan from zero; keep only the final state
+    _, hfin = scan(jnp.zeros_like(aprod))
+    h0 = jnp.stack([_stitch_h0(aprod[g], hfin[g], seq_axis, n_shards, dirs[g])
+                    for g in range(G)])
+    # pass 2: re-scan seeded with the stitched state
+    y, _ = scan(h0)
+    return y

@@ -1,13 +1,12 @@
-"""SSD (Mamba-2 / state-space duality) recurrence — MXU-native chunked form.
+"""SSD (Mamba-2 / state-space duality) recurrence — matmul-shaped chunked form.
 
 The reference framework has no Mamba-2 anywhere (its ``mamba-ssm==2.2.2`` pin
 ships the CUDA SSD kernels, but every PlantCaduceus model is Mamba-1; see
-SURVEY.md §2.2). This op exists because of a TPU-structural fact recorded in
-docs/DESIGN.md §5: Mamba-1's per-(channel, state) decay pins the selective
-scan to the fp32 VPU (~754 Gstates/s here, near the issue floor), whereas
-Mamba-2 restricts the decay to a *scalar per head* — which turns the whole
-recurrence into chunked matmuls that run on the MXU. This is the idiomatic
-TPU answer for scaling the model family past the VPU ceiling.
+SURVEY.md §2.2). Mamba-1's per-(channel, state) decay makes its selective
+scan elementwise work, whereas Mamba-2 restricts the decay to a *scalar per
+head* — which turns the whole recurrence into chunked matrix products, which
+XLA hands to the GPU's tensor cores (cuBLAS). The SSD presets exist to scale
+the model family that way.
 
 Semantics (per head h with head dim P, state size N, B/C shared per group):
 
@@ -19,20 +18,20 @@ Semantics (per head h with head dim P, state size N, B/C shared per group):
 Chunked algorithm (chunk length T; everything is a matmul):
 
     within chunk:  scores[t,s] = (C[t]·B[s]) * exp(cum[t]-cum[s]) * dt'[s]
-                   Y_intra = scores @ X                       (MXU, [T,T]@[T,P])
-    chunk state:   states = (B * dt' * decay_to_end)ᵀ @ X     (MXU, [N,T]@[T,P])
+                   Y_intra = scores @ X                       ([T,T]@[T,P])
+    chunk state:   states = (B * dt' * decay_to_end)ᵀ @ X     ([N,T]@[T,P])
     across chunks: S[c] = exp(Σ la_c) * S[c-1] + states[c]    (lax.scan, L/T steps)
-    inter:         Y_inter[t] = (C[t] @ S_prev) * exp(cum[t]) (MXU, [T,N]@[N,P])
+    inter:         Y_inter[t] = (C[t] @ S_prev) * exp(cum[t]) ([T,N]@[N,P])
 
 The reverse (anticausal) direction is native — no jnp.flip of any
 [.., L, ..] tensor: the in-chunk mask transposes, the cumulative decays
 become exclusive/suffix sums, and the chunk-state scan runs with
-``reverse=True`` (same trick as the Pallas Mamba-1 kernel's native reverse
-mode, docs/DESIGN.md §2).
+``reverse=True`` (the same native reverse as the Mamba-1 scans,
+ops/selective_scan.py).
 
 All internals are float32 (the inter-chunk state recurrence especially);
 inputs may be bfloat16 and the output is cast back to the input dtype.
-Differentiation is ordinary XLA autodiff — unlike the Mamba-1 Pallas kernel
+Differentiation is ordinary XLA autodiff — unlike the Mamba-1 Triton kernel
 no custom VJP is needed, and the backward is matmul-shaped too.
 
 Shapes (group axis G = scan directions, like ops/selective_scan.py):
@@ -123,11 +122,11 @@ def _chunk_group(xg, dtg, Ag, Bg, Cg, chunk, rev, mm_dtype=jnp.float32):
     """One direction of the chunked SSD. xg [B,L,H,P] fp32 (dt applied in),
     dtg [B,L,H], Ag [H], Bg/Cg [B,L,NG,N]. Returns y [B,L,H,P] fp32.
 
-    ``mm_dtype`` is the MXU operand dtype: decays, the inter-chunk state and
-    every accumulation stay fp32, but with bf16 inputs the matmul operands
-    (scores, x, B, C, boundary states) are cast to bf16 — halving the HBM
-    traffic of the materialised [T, T, H] score blocks and running the MXU
-    at its bf16 rate.
+    ``mm_dtype`` is the matmul operand dtype: decays, the inter-chunk state
+    and every accumulation stay fp32, but with bf16 inputs the matmul
+    operands (scores, x, B, C, boundary states) are cast to bf16 — halving
+    the memory traffic of the materialised [T, T, H] score blocks and
+    running the tensor cores at their bf16 rate.
     """
     B, L, H, P = xg.shape
     NG, N = Bg.shape[-2:]
@@ -139,8 +138,8 @@ def _chunk_group(xg, dtg, Ag, Bg, Cg, chunk, rev, mm_dtype=jnp.float32):
 
     # Head-major layout: every matmul below is a plain batched dot whose two
     # minor-most axes are the matrix dims ([T,T]@[T,P], [N,T]@[T,P],
-    # [T,N]@[N,P]) — measured 10x+ faster on TPU than the time-major einsums
-    # (which strided the head axis through the matmul minors).
+    # [T,N]@[N,P]) rather than time-major einsums, which stride the head
+    # axis through the matmul minors.
     xh = jnp.transpose(xg.reshape(B, nc, T, NG, hg, P),
                        (0, 1, 3, 4, 2, 5)).astype(mm_dtype)  # [B,nc,NG,hg,T,P]
     dth = jnp.transpose(dtg.reshape(B, nc, T, NG, hg),
@@ -176,15 +175,15 @@ def _chunk_group(xg, dtg, Ag, Bg, Cg, chunk, rev, mm_dtype=jnp.float32):
     # scores[t,s] = (C[t]·B[s]) * segexp[t,s] * dt'[s]  → Y_intra = scores @ x
     GBC = jnp.einsum("bcgtn,bcgsn->bcgts", Ch.astype(mm_dtype),
                      Bh.astype(mm_dtype),
-                     preferred_element_type=f32)  # [B,nc,NG,T,T] (MXU)
+                     preferred_element_type=f32)  # [B,nc,NG,T,T]
     scores = GBC[:, :, :, None] * segexp * dth[..., None, :]
     y_intra = jnp.einsum("bcghts,bcghsp->bcghtp", scores.astype(mm_dtype),
-                         xh, preferred_element_type=f32)  # (MXU)
+                         xh, preferred_element_type=f32)
 
     # chunk boundary states: [B,nc,NG,hg,N,P]
     w = Bh[:, :, :, None] * (dth * jnp.exp(outof))[..., None]
     states = jnp.einsum("bcghtn,bcghtp->bcghnp", w.astype(mm_dtype),
-                        xh, preferred_element_type=f32)  # (MXU)
+                        xh, preferred_element_type=f32)
 
     # inter-chunk recurrence over nc chunk states (tiny sequential scan).
     total = jnp.exp(jnp.sum(la, axis=-1))  # [B,nc,NG,hg]
@@ -206,7 +205,7 @@ def _chunk_group(xg, dtg, Ag, Bg, Cg, chunk, rev, mm_dtype=jnp.float32):
     # Y_inter[t] = (C[t] @ S_boundary) * exp(into[t])
     y_inter = jnp.einsum("bcgtn,bcghnp->bcghtp", Ch.astype(mm_dtype),
                          S_prev.astype(mm_dtype),
-                         preferred_element_type=f32)  # (MXU)
+                         preferred_element_type=f32)
     y_inter = y_inter * jnp.exp(into)[..., None]
 
     y = jnp.transpose(y_intra + y_inter, (0, 1, 4, 2, 3, 5))  # [B,nc,T,NG,hg,P]
@@ -227,9 +226,9 @@ def ssd_chunked(
     chunk: int = 128,
     directions: Sequence[bool] = (False,),
 ) -> jax.Array:
-    """Chunked (matmul) SSD — the production path on TPU and CPU alike."""
+    """Chunked (matmul) SSD — the production path on GPU and CPU alike."""
     out_dtype = x.dtype
-    # bf16 activations keep bf16 MXU operands (fp32 decays/accumulation);
+    # bf16 activations keep bf16 matmul operands (fp32 decays/accumulation);
     # fp32 inputs get a fully-fp32 computation (tests, parity checks).
     mm_dtype = jnp.bfloat16 if out_dtype == jnp.bfloat16 else jnp.float32
     x, dt, A, Bm, Cm, Dskip = _prep(x, dt, A, Bm, Cm, Dskip, dt_bias, dt_softplus)
@@ -242,3 +241,25 @@ def ssd_chunked(
     ]
     y = jnp.stack(ys) + Dskip[:, None, None, :, None] * x
     return y.astype(out_dtype)
+
+
+def select_ssd_impl(backend: str) -> str:
+    """The SSD implementation for ``backend``: the chunked XLA form on
+    ``gpu`` (its matmuls go to cuBLAS) and on ``cpu``. Any other backend is
+    an error."""
+    if backend not in ("gpu", "cpu"):
+        raise ValueError(f"no SSD implementation for backend {backend!r} "
+                         "(gpu or cpu)")
+    return "xla"
+
+
+def ssd_dir(x, dt, A, Bm, Cm, Dskip, dt_bias, chunk, reverse):
+    """One direction of :func:`ssd_chunked` on flat shapes: x [R, L, H*P],
+    dt [R, L, H] raw (bias + softplus applied inside), Bm/Cm [R, L, NG, N],
+    A/Dskip/dt_bias [H]. Returns y [R, L, H*P]."""
+    R, L, HP = x.shape
+    H = dt.shape[-1]
+    y = ssd_chunked(x.reshape(1, R, L, H, HP // H), dt[None], A[None],
+                    Bm[None], Cm[None], Dskip[None], dt_bias=dt_bias[None],
+                    chunk=chunk, directions=(reverse,))
+    return y.reshape(R, L, HP)

@@ -29,8 +29,7 @@ closed-form correction, cheaper than the Mamba-1 two-pass design:
            gets the seeded result for one extra [L, N]@[N, P] matmul.)
 
 All stitch/correction math is plain differentiable JAX around the local SSD
-core (Pallas ``ssd_dir`` with its hand-written backward, or the XLA chunked
-form off-TPU), so ``jax.grad`` through the enclosing ``shard_map`` inserts
+core (``ops.ssd.ssd_dir``, the chunked XLA form), so ``jax.grad`` through the enclosing ``shard_map`` inserts
 the adjoint collectives automatically — no hand-written cross-shard adjoint.
 
 Every exponent above is ≤ 0 (la = softplus(dt)·A with A < 0), so no term
@@ -41,6 +40,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from plantcaduceus_tpu.ops.ssd import ssd_dir
 
 
 def _stitch_state(prod, fin, axis_name: str, n_shards: int, reverse: bool):
@@ -70,10 +71,9 @@ def ssd_dir_seq_sharded(
     reverse: bool,
     seq_axis: str,
     n_shards: int,
-    impl: str = "pallas",
 ) -> jax.Array:
     """One direction with the L axis sharded over ``seq_axis``; arguments
-    hold the LOCAL chunk. Same flat contract as pallas_ssd.ssd_dir:
+    hold the LOCAL chunk. Same flat contract as ssd.ssd_dir:
     x [B, Lloc, H*P], dt [B, Lloc, H] raw (bias+softplus applied inside),
     Bm/Cm [B, Lloc, NG, N], A/Dskip/dt_bias [H]. Returns the local y chunk.
     Differentiable; gradients match the single-device SSD
@@ -86,10 +86,7 @@ def ssd_dir_seq_sharded(
     f32 = jnp.float32
 
     # Local pass from zero state (includes the D-skip).
-    from plantcaduceus_tpu.ops.pallas_ssd import ssd_dir, ssd_dir_xla
-
-    core = ssd_dir if impl == "pallas" else ssd_dir_xla
-    y = core(x, dt, A, Bm, Cm, Dskip, dt_bias, chunk, reverse)
+    y = ssd_dir(x, dt, A, Bm, Cm, Dskip, dt_bias, chunk, reverse)
 
     # Shard summary + boundary correction, head-grouped shapes [.., NG, hg].
     dtp = jax.nn.softplus(dt.astype(f32) + dt_bias.astype(f32))  # [B, L, H]

@@ -31,7 +31,7 @@ Composition: ``pipe`` combines with ``data`` and ``fsdp`` (batch shards over
 (data, fsdp) and is replicated across stages; fsdp gathers happen per stage
 over the stage's layer shard). ``tensor`` / ``seq`` do not combine with
 ``pipe`` in v1 — at the scales where PP matters the mixer is already large
-enough to saturate the MXU without intra-layer sharding.
+enough to fill the device without intra-layer sharding.
 """
 
 from __future__ import annotations
@@ -98,7 +98,6 @@ def pipeline_forward(
     dtype=jnp.bfloat16,
     axis: str = AXIS,
     remat: bool = True,
-    fused_inference: bool = False,
 ):
     """Full masked-LM forward under pipeline parallelism.
 
@@ -119,9 +118,7 @@ def pipeline_forward(
             f"divisible by n_micro={n_micro}")
     emb_mb = residual.reshape(n_micro, SB // n_micro, L, d)
 
-    block_fn = caduceus.make_block_fn(cfg, dtype,
-                                      fused_inference=fused_inference,
-                                      remat=remat)
+    block_fn = caduceus.make_block_fn(cfg, dtype, remat=remat)
     outs = pipeline_stages(params["blocks"], emb_mb, block_fn,
                            n_stages, n_micro, axis)
     h_res = outs.reshape(SB, L, d)

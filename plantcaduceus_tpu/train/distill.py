@@ -91,12 +91,10 @@ def make_distill_step(
         # (same reasoning as train/step.py).
         W = jnp.maximum(psum(jnp.sum(w_local)), 1e-8)
 
-        # Teacher is forward-only (outside the differentiated closure), so
-        # the fused inference kernels are safe for either SSM variant.
+        # Teacher is forward-only (outside the differentiated closure).
         t_logits = jax.lax.stop_gradient(
             caduceus.forward(params_t, batch["input_ids"], teacher_cfg,
-                             dtype=dtype,
-                             fused_inference=True)["logits"]
+                             dtype=dtype)["logits"]
         ).astype(jnp.float32)
         logp_t = jax.nn.log_softmax(t_logits / T, axis=-1)
         p_t = jnp.exp(logp_t)

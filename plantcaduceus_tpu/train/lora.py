@@ -90,13 +90,11 @@ def lora_ctx(adapters, cfg_l: LoraConfig,
 
 
 def _rbg_key(key):
-    """Re-key dropout onto the hardware RNG (rbg) implementation.
+    """Re-key dropout onto the rbg generator.
 
     LoRA training draws per-module [rows, L, d]-shaped dropout masks at
-    every layer; with the default threefry generator the bit generation
-    alone measured 0.33 s of the 0.63 s l20 step — the entire LoRA-vs-full
-    throughput gap (VERDICT r3 #3; tools: /tmp rbg microbench, threefry
-    142.7 ms vs rbg 25.2 ms for 20x[16,512,768] masks on v5e). rbg keys
+    every layer, and bit generation with the default threefry generator is
+    a large share of the step (on the GPU: not measured). rbg keys
     split/fold_in deterministically, so checkpoint-resume mask replay is
     preserved; only the bit pattern differs from threefry, which no
     semantics depend on."""
@@ -332,7 +330,7 @@ def save_adapter(directory, state: LoraTrainState, cfg_l: LoraConfig,
     import json
     from pathlib import Path
 
-    import orbax.checkpoint as ocp
+    from plantcaduceus_tpu.train.checkpoint import save_tree
 
     directory = Path(directory).absolute()
     directory.mkdir(parents=True, exist_ok=True)
@@ -341,11 +339,8 @@ def save_adapter(directory, state: LoraTrainState, cfg_l: LoraConfig,
         "targets": list(cfg_l.targets), "task_type": task_type,
         "base_model_name_or_path": str(base_model),
     }, indent=2))
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(directory / "adapter",
-               {"adapters": jax.device_get(state.adapters),
-                "head": jax.device_get(state.head)}, force=True)
-    ckptr.wait_until_finished()
+    save_tree(directory / "adapter.npz",
+              {"adapters": state.adapters, "head": state.head})
 
 
 def load_adapter(directory):
@@ -353,17 +348,16 @@ def load_adapter(directory):
     import json
     from pathlib import Path
 
-    import orbax.checkpoint as ocp
+    from plantcaduceus_tpu.train.checkpoint import load_tree
 
     directory = Path(directory).absolute()
     meta = json.loads((directory / "adapter_config.json").read_text())
-    ckptr = ocp.StandardCheckpointer()
-    tree = ckptr.restore(directory / "adapter")
+    tree = load_tree(directory / "adapter.npz")
     cfg_l = LoraConfig(r=meta["r"], alpha=meta["alpha"],
                        dropout=meta["dropout"],
                        targets=tuple(meta["targets"]))
-    return (tree["adapters"], tree["head"], cfg_l, meta["task_type"],
-            meta["base_model_name_or_path"])
+    return (tree.get("adapters", {}), tree.get("head", {}), cfg_l,
+            meta["task_type"], meta["base_model_name_or_path"])
 
 
 def save_train_state(directory, state: LoraTrainState, cfg_l: LoraConfig,
@@ -374,15 +368,12 @@ def save_train_state(directory, state: LoraTrainState, cfg_l: LoraConfig,
     evaluate/predict like any exported adapter."""
     from pathlib import Path
 
-    import orbax.checkpoint as ocp
+    from plantcaduceus_tpu.train.checkpoint import save_tree
 
     save_adapter(directory, state, cfg_l, task_type, base_model)
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(Path(directory).absolute() / "train_state",
-               {"opt_state": jax.device_get(state.opt_state),
-                "step": jax.device_get(jnp.asarray(state.step, jnp.int32))},
-               force=True)
-    ckptr.wait_until_finished()
+    save_tree(Path(directory).absolute() / "train_state.npz",
+              {"opt_state": state.opt_state,
+               "step": jnp.asarray(state.step, jnp.int32)})
 
 
 def load_train_state(directory, optimizer) -> Tuple[LoraTrainState,
@@ -392,23 +383,22 @@ def load_train_state(directory, optimizer) -> Tuple[LoraTrainState,
     -> (state, LoraConfig, task_type, base_model_name)."""
     from pathlib import Path
 
-    import orbax.checkpoint as ocp
+    from plantcaduceus_tpu.train.checkpoint import load_tree
 
     directory = Path(directory).absolute()
     adapters, head, cfg_l, task_type, base = load_adapter(directory)
     adapters = jax.tree.map(jnp.asarray, adapters)
     head = jax.tree.map(jnp.asarray, head)
-    ts_dir = directory / "train_state"
-    if not ts_dir.exists():
+    ts_file = directory / "train_state.npz"
+    if not ts_file.exists():
         raise FileNotFoundError(
-            f"{directory} has no train_state/ — it is an adapter export, "
+            f"{directory} has no train_state.npz — it is an adapter export, "
             "not a resumable training checkpoint")
-    # The optimizer's init tree is the restore template (orbax needs the
-    # exact pytree structure to rebuild optax NamedTuple states).
+    # The optimizer's init tree is the restore template (it carries the
+    # pytree structure of the optax NamedTuple states).
     template = {"opt_state": optimizer.init((adapters, head)),
                 "step": jnp.zeros((), jnp.int32)}
-    ckptr = ocp.StandardCheckpointer()
-    tree = ckptr.restore(ts_dir, template)
+    tree = load_tree(ts_file, template)
     state = LoraTrainState(adapters, head, tree["opt_state"],
                            jnp.asarray(tree["step"], jnp.int32))
     return state, cfg_l, task_type, base

@@ -5,8 +5,8 @@ Lightning — SURVEY.md §2.7) and its dormant fsdp_config hook
 (pretrain/scripts/train_mosaic_bert.py:262) with a single mechanism:
 
 * the gradient computation runs under ``shard_map`` with explicit collectives
-  (Pallas kernels have no GSPMD partitioning rule, so SPMD must be manual on
-  the hot path),
+  (the Triton scan kernel has no GSPMD partitioning rule, so SPMD must be
+  manual on the hot path),
 * batch shards over ('data','fsdp'); parameters/optimizer state shard over
   'fsdp' (ZeRO-style: all_gather before use, psum_scatter of gradients) and
   over 'tensor' on d_inner axes (mixer psums; see models.caduceus),
@@ -140,7 +140,7 @@ def make_grad_fn(cfg: CaduceusConfig, mesh: Mesh, param_specs,
                  grad_accum: int = 1):
     """shard_map'd (params, batch) -> (loss, accuracy, grads). On a
     single-device mesh the shard_map wrapper (and its no-op collectives) is
-    bypassed entirely — measured ~1 s/step of overhead on the remote TPU.
+    bypassed entirely.
 
     ``grad_accum > 1`` runs the batch as that many sequential microbatches
     (``lax.scan`` over a [accum, rows/accum, L] reshape of each shard's
@@ -347,24 +347,19 @@ def make_train_step(
     def local_eval(params, batch):
         # forward-only (no gradients)
         psum = (lambda v, a: v) if single else jax.lax.psum
-        fused = jax.default_backend() == "tpu"
         if pp_ev:
             from plantcaduceus_tpu.parallel.pipeline import pipeline_forward
 
             logits, is_last = pipeline_forward(
                 params, batch["input_ids"], cfg, n_stages=pp_stages_,
-                n_micro=pp_microbatches, dtype=dtype, remat=False,
-                fused_inference=fused)
+                n_micro=pp_microbatches, dtype=dtype, remat=False)
             gate = lambda v: jnp.where(is_last, v, jnp.zeros_like(v))
         else:
             out = caduceus.forward(
                 params, batch["input_ids"], cfg, dtype=dtype,
                 tp_axis=tp_axis,
                 sp_axis="seq" if sp else None,
-                sp_shards=sp_shards,
-                # forward-only: the fused whole-mixer kernel is safe (no
-                # residuals needed for a backward)
-                fused_inference=fused)
+                sp_shards=sp_shards)
             logits = out["logits"]
             gate = lambda v: v
         nll, w = _loss_sums(logits, batch["labels"],

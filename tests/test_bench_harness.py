@@ -1,25 +1,27 @@
-"""Structural tests for the budgeted bench harness (VERDICT r4 #1).
+"""Structural tests for the budgeted bench harness.
 
-The round-4 driver bench recorded NOTHING (rc=124, parsed:null). These
-tests pin the structural guarantees that prevent a repeat — without
-touching a TPU: measurements are monkeypatched, only the scheduling,
-budget, summary-emission, and anchor-correction logic runs.
+These pin the harness's guarantees without touching a GPU: the device probe
+and the per-lane subprocess dispatch are monkeypatched, measurements are
+faked, and only the platform gate, scheduling, budget and summary-emission
+logic runs.
 """
 
 import importlib
 import json
-import sys
 
 import pytest
 
 import bench as bench_mod
 
+H100_KIND = "NVIDIA H100 80GB HBM3"
+
 
 @pytest.fixture()
 def bench(monkeypatch, tmp_path):
-    """A reloaded bench module with fake measurements and tmp goldens."""
+    """A reloaded bench module with fake measurements, a fake GPU probe and
+    in-process lane dispatch."""
     b = importlib.reload(bench_mod)
-    calls = {"ladder": [], "train": [], "convergence": 0, "selftest": []}
+    calls = {"ladder": [], "train": []}
 
     monkeypatch.setattr(b, "measure",
                         lambda model, n, batch: calls["ladder"].append(model)
@@ -34,25 +36,14 @@ def bench(monkeypatch, tmp_path):
         lambda: {"final_loss": 1.0, "loss_trajectory": [],
                  "motif_accuracy": 0.9, "background_accuracy": 0.3,
                  "repeat_loss": 1.0, "held_out": True})
-    monkeypatch.setattr(b, "run_scaling_artifact",
-                        lambda timeout_s: None)
-
-    class FakeSelftest:
-        @staticmethod
-        def run(fast=False):
-            calls["selftest"].append(fast)
-            return True
-
-    monkeypatch.setitem(sys.modules, "tools.tpu_selftest", FakeSelftest)
-    monkeypatch.setenv("PCAD_BENCH_ALLOW_CPU", "1")
-    monkeypatch.setattr(b, "TRAIN_ANCHORS_PATH",
-                        str(tmp_path / "anchors.json"))
-    monkeypatch.setattr(b, "CORRECTIONS_PATH",
-                        str(tmp_path / "corrections.json"))
+    monkeypatch.setattr(b, "_probe_platform",
+                        lambda: {"platform": "gpu", "kind": H100_KIND})
+    monkeypatch.setattr(b, "_dispatch",
+                        lambda fn_name, args, timeout_s=0: getattr(b, fn_name)(
+                            *args))
     monkeypatch.setattr(b, "CONVERGENCE_ANCHOR_PATH",
                         str(tmp_path / "conv.json"))
     b._calls = calls
-    b._tmp = tmp_path
     return b
 
 
@@ -72,21 +63,17 @@ def test_full_run_emits_progressive_summaries(bench, capsys):
     final = summaries[-1]
     assert "partial" not in final
     assert final["value"] == 100.0
-    assert final["selftest"] == "pass"
+    assert final["device"] == {"platform": "gpu", "kind": H100_KIND}
     # every ladder model and train lane ran
     assert set(m for m, *_ in bench.LADDER) == set(bench._calls["ladder"])
     assert len(final["train"]) == len(bench.TRAIN_LANE)
-    # fast selftest ran before full
-    assert bench._calls["selftest"] == [True, False]
 
 
 def test_budget_skips_tail_lanes_but_keeps_headline(bench, capsys,
                                                     monkeypatch):
-    # Headline-lane estimate fits, nothing else does: elapsed is 0 in the
-    # fake (instant measurements), so choose a budget between the headline
-    # cold estimate (380) + fast selftest (400) and the next lane's.
+    # Headline-lane estimate (380) fits, nothing after it does: each
+    # completed lane reports a high observed per-unit cost.
     monkeypatch.setattr(bench, "BUDGET", 380 + 100 + bench.RESERVE)
-    # fake lane costs: pretend each completed lane took 300 s
     orig_run_lane = bench.run_lane
 
     def slow_clock_lane(name, cat, weight, fn):
@@ -107,31 +94,6 @@ def test_budget_skips_tail_lanes_but_keeps_headline(bench, capsys,
         assert s["reason"] == "budget"
 
 
-def test_anchor_corrects_downward_with_reason(bench, capsys):
-    with open(bench.TRAIN_ANCHORS_PATH, "w") as fh:
-        json.dump({"l20": 100000}, fh)  # flattered anchor: measured is 50k
-    bench.main()
-    lines, summaries = _summaries(capsys)
-    final = summaries[-1]
-    assert final["train_regressions"], "sub-tolerance lane must be flagged"
-    assert final["anchor_corrections"]
-    corr = final["anchor_corrections"][0]
-    assert corr["lane"] == "l20" and corr["old"] == 100000 \
-        and corr["new"] == 50000
-    new_anchors = json.load(open(bench.TRAIN_ANCHORS_PATH))
-    assert new_anchors["l20"] == 50000             # honest downward path
-    log = json.load(open(bench.CORRECTIONS_PATH))
-    assert log and log[0]["reason"]
-
-
-def test_anchors_still_ratchet_up(bench, capsys):
-    with open(bench.TRAIN_ANCHORS_PATH, "w") as fh:
-        json.dump({"l20": 40000}, fh)
-    bench.main()
-    capsys.readouterr()
-    assert json.load(open(bench.TRAIN_ANCHORS_PATH))["l20"] == 50000
-
-
 def test_lane_error_does_not_kill_the_bench(bench, capsys, monkeypatch):
     def boom(model, n, batch):
         raise RuntimeError("lane exploded")
@@ -143,3 +105,30 @@ def test_lane_error_does_not_kill_the_bench(bench, capsys, monkeypatch):
     assert final["value"] is None
     assert any("lane exploded" in v for v in final["errors"].values())
     assert final["train"], "training lanes still ran"
+
+
+@pytest.mark.parametrize("platform", ["cpu", "METAL"])
+def test_non_gpu_platform_is_refused(bench, capsys, monkeypatch, platform):
+    monkeypatch.setattr(bench, "_probe_platform",
+                        lambda: {"platform": platform, "kind": "x"})
+    with pytest.raises(SystemExit) as e:
+        bench.main()
+    assert e.value.code == 2
+    lines, summaries = _summaries(capsys)
+    assert "no GPU" in summaries[-1]["errors"]["platform"]
+    assert not bench._calls["ladder"] and not bench._calls["train"]
+
+
+@pytest.mark.parametrize("kind,peak", [
+    ("NVIDIA H100 80GB HBM3", 989.4e12),
+    ("NVIDIA H100 PCIe", 756e12),
+    ("NVIDIA H100 NVL", 835e12),
+])
+def test_peak_flops_by_device_kind(kind, peak):
+    assert bench_mod.peak_flops(kind) == peak
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA H200", "NVIDIA A100-SXM4-80GB", ""])
+def test_unknown_device_kind_is_an_error(kind):
+    with pytest.raises(ValueError, match="no peak FLOP/s"):
+        bench_mod.peak_flops(kind)

@@ -1,10 +1,9 @@
-"""Pin the collective inventory of the sharded programs (VERDICT r4 #3).
+"""Pin the collective inventory of the sharded programs.
 
 The deterministic scaling signal: the post-SPMD HLO of the 8-virtual-device
 scoring forward and training step must issue EXACTLY the pinned collectives
 (kinds, counts, payload bytes). A code change that adds an unexpected
-collective — or grows one — fails here, noise-free, where the old
-virtual-CPU-mesh timing proxy swung ±40% with host contention.
+collective — or grows one — fails here, noise-free.
 
 Golden regenerated by: python tools/collective_audit.py (see the tool's
 docstring); tests/goldens/collective_audit.json.
@@ -71,17 +70,3 @@ def test_train_ssd_dp8_collectives_pinned(golden):
 
     got = audit_training(8, fsdp=1, ssm_variant="mamba2")
     assert got == golden["train_dp8_ssd"]
-
-
-def test_projection_arithmetic():
-    from tools.collective_audit import _project
-
-    # 20.9M params over 8 chips, 0.294 s/step: grad volume 83.5 MB, ring
-    # 2*(7/8) over 2 rings of 45 GB/s -> ~1.6 ms -> efficiency ~0.994.
-    p = _project(20_873_088, 0.2941, 8)
-    assert p["grad_allreduce_bytes"] == 4 * 20_873_088
-    assert 0.99 < p["projected_efficiency_no_overlap"] < 1.0
-    # Efficiency degrades monotonically with params at fixed step time.
-    p_big = _project(225_362_944, 0.2941, 8)
-    assert p_big["projected_efficiency_no_overlap"] < \
-        p["projected_efficiency_no_overlap"]

@@ -72,3 +72,157 @@ def test_scan_grads_finite(rng):
     grads = jax.grad(loss, argnums=tuple(range(7)))(*args)
     for g in grads:
         assert np.all(np.isfinite(np.asarray(g)))
+
+
+# ---------------------------------------------------------------------------
+# Chunked XLA scan: directions, seeded state, fused dt projection
+# ---------------------------------------------------------------------------
+
+from plantcaduceus_tpu.ops.selective_scan import (  # noqa: E402
+    select_scan_impl, selective_scan_chunked)
+from tests.test_triton_scan import (  # noqa: E402
+    make_inputs as make_scan_inputs, reference)
+
+
+@pytest.mark.parametrize("directions", [(False, False), (False, True),
+                                        (True, True)])
+@pytest.mark.parametrize("chunk", [4, 16, 64])
+@pytest.mark.parametrize("fused", [True, False])
+def test_chunked_matches_sequential(directions, chunk, fused):
+    """Chunks that divide L, that do not (padding), and one chunk longer
+    than L; every direction mix; initial state in, final state out."""
+    import jax
+
+    args = make_scan_inputs(10, L=37, D=12, N=4, fused=fused)
+    x, dt, A, Bm, Cm, Ds, dtb, w, h0 = args
+    with jax.default_matmul_precision("highest"):
+        y_ref, h_ref = reference(*args, directions)
+        y, h = selective_scan_chunked(x, dt, A, Bm, Cm, Ds, dtb,
+                                      dt_proj_w=w, directions=directions,
+                                      h0=h0, chunk=chunk)
+    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(h), np.asarray(h_ref),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("directions", [(False, True), (True, False)])
+def test_chunked_grads_match_sequential(directions):
+    import jax
+
+    args = make_scan_inputs(11, L=21, D=8, N=4)
+    ky = jax.random.normal(jax.random.PRNGKey(3), args[0].shape)
+    kh = jax.random.normal(jax.random.PRNGKey(4), args[-1].shape)
+
+    def chunked(x, dt, A, Bm, Cm, Ds, dtb, w, h0, dirs):
+        return selective_scan_chunked(x, dt, A, Bm, Cm, Ds, dtb, dt_proj_w=w,
+                                      directions=dirs, h0=h0, chunk=8)
+
+    def loss(fn):
+        def f(*a):
+            y, h = fn(*a, directions)
+            return jnp.sum(y * ky) + jnp.sum(h * kh)
+        return f
+
+    argnums = tuple(range(9))
+    with jax.default_matmul_precision("highest"):
+        want = jax.grad(loss(reference), argnums=argnums)(*args)
+        got = jax.grad(loss(chunked), argnums=argnums)(*args)
+    for i, g, r in zip(argnums, got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(r), rtol=1e-4,
+                                   atol=1e-4, err_msg=f"arg {i}")
+
+
+@pytest.mark.parametrize("impl", ["sequential", "associative", "chunked"])
+def test_dispatch_directions_and_dt_projection(impl):
+    """Every CPU implementation behind the dispatcher honours directions and
+    the fused low-rank dt projection the same way."""
+    import jax
+
+    x, dt, A, Bm, Cm, Ds, dtb, w, _ = make_scan_inputs(12, L=24, D=8, N=4)
+    with jax.default_matmul_precision("highest"):
+        want, _ = reference(x, dt, A, Bm, Cm, Ds, dtb, w, None,
+                            (False, True))
+        got = selective_scan(x, dt, A, Bm, Cm, Ds, dt_bias=dtb, impl=impl,
+                             dt_proj_w=w, directions=(False, True))
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_dispatch_returns_final_state():
+    x, dt, A, Bm, Cm, Ds, dtb, w, h0 = make_scan_inputs(13, L=16, D=8, N=4)
+    y, h = selective_scan(x, dt, A, Bm, Cm, Ds, dt_bias=dtb, impl="chunked",
+                          dt_proj_w=w, directions=(False, True), h0=h0,
+                          return_final_state=True)
+    assert y.shape == x.shape and h.shape == h0.shape
+
+
+def test_associative_refuses_state():
+    x, dt, A, Bm, Cm, Ds, dtb, w, h0 = make_scan_inputs(14, L=8, D=8, N=4)
+    with pytest.raises(NotImplementedError):
+        selective_scan(x, dt, A, Bm, Cm, Ds, dt_bias=dtb, impl="associative",
+                       dt_proj_w=w, h0=h0)
+
+
+@pytest.mark.parametrize("directions", [(False, True), (True, True)])
+def test_sequential_dispatch_seeded_state(directions):
+    """The plain reference takes an initial state and returns the final one
+    through the dispatcher, reverse groups included."""
+    import jax
+
+    args = make_scan_inputs(15, L=11, D=8, N=4)
+    x, dt, A, Bm, Cm, Ds, dtb, w, h0 = args
+    with jax.default_matmul_precision("highest"):
+        y_ref, h_ref = reference(*args, directions)
+        y, h = selective_scan(x, dt, A, Bm, Cm, Ds, dt_bias=dtb,
+                              impl="sequential", dt_proj_w=w,
+                              directions=directions, h0=h0,
+                              return_final_state=True)
+    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(h), np.asarray(h_ref),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend,requested,want", [
+    ("gpu", "auto", "triton"),
+    ("gpu", "pallas", "triton"),
+    ("gpu", "chunked", "chunked"),
+    ("cpu", "auto", "chunked"),
+    ("cpu", "associative", "associative"),
+    ("cpu", "sequential", "sequential"),
+])
+def test_select_scan_impl(backend, requested, want):
+    assert select_scan_impl(backend, requested) == want
+
+
+@pytest.mark.parametrize("backend,requested", [
+    ("cpu", "triton"),      # the kernel only compiles for the GPU
+    ("cpu", "pallas"),
+    ("rocm", "auto"),       # no implementation for other backends
+    ("METAL", "auto"),
+    ("gpu", "flash"),       # unknown implementation
+])
+def test_select_scan_impl_refuses(backend, requested):
+    with pytest.raises(ValueError):
+        select_scan_impl(backend, requested)
+
+
+@pytest.mark.parametrize("backend", ["gpu", "cpu"])
+def test_select_ssd_and_attention_impls(backend):
+    from plantcaduceus_tpu.ops.attention import select_attention_impl
+    from plantcaduceus_tpu.ops.ssd import select_ssd_impl
+
+    assert select_ssd_impl(backend) == "xla"
+    assert select_attention_impl(backend) == "xla"
+
+
+@pytest.mark.parametrize("backend", ["rocm", "METAL", ""])
+def test_select_ssd_and_attention_refuse_unknown_backend(backend):
+    from plantcaduceus_tpu.ops.attention import select_attention_impl
+    from plantcaduceus_tpu.ops.ssd import select_ssd_impl
+
+    with pytest.raises(ValueError):
+        select_ssd_impl(backend)
+    with pytest.raises(ValueError):
+        select_attention_impl(backend)

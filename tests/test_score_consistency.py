@@ -103,12 +103,9 @@ def test_scores_context_parallel_match(rng):
     identically to the single-device runner: the length-sharded forward
     (halo conv + two-pass scan + RC shard flips) plus the GSPMD-sliced
     extraction reproduce every probability."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    # interpret-mode Pallas is slow: keep shapes at the scale of
-    # tests/test_seq_parallel.py's full-model checks
+    # shapes at the scale of tests/test_seq_parallel.py's full-model checks
     small = dict(d_model=16, n_layer=2, vocab_size=16, d_state=4)
-    cfg_sp = CaduceusConfig(**small, scan_impl="pallas")
+    cfg_sp = CaduceusConfig(**small, scan_impl="chunked")
     cfg_ref = CaduceusConfig(**small)
     params = caduceus.init_params(jax.random.PRNGKey(0), cfg_ref)
     tok = DnaTokenizer()
@@ -122,9 +119,8 @@ def test_scores_context_parallel_match(rng):
     mesh = meshlib.make_mesh(meshlib.MeshConfig(data=2, seq=4))
     sp_runner = InferenceRunner(params, cfg_sp, mesh=mesh,
                                 dtype=jnp.float32, batch_size=4)
-    with pltpu.force_tpu_interpret_mode():
-        got = zero_shot.nucleotide_probs(sp_runner, tok, seqs, token_idx=64,
-                                         progress=False)
+    got = zero_shot.nucleotide_probs(sp_runner, tok, seqs, token_idx=64,
+                                     progress=False)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
@@ -180,9 +176,8 @@ def test_duplicate_windows_scored_once(rng, monkeypatch):
 
 
 def test_ssd_long_context_no_batch_warning(rng, monkeypatch):
-    """r3's SSD long-context HBM-cliff warning is gone: re-measurement with
-    the whole-interior fused kernel shows batch 8/16/32 within 2% at
-    8192 bp (20.6/20.1/20.3 win/s), so large batches must run silently."""
+    """The runner emits no long-context batch warning for the SSD variants:
+    large batches at long windows run silently."""
     import warnings
 
     cfg = CaduceusConfig(d_model=32, n_layer=1, vocab_size=16,

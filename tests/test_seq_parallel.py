@@ -6,7 +6,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from plantcaduceus_tpu.ops.seq_parallel import selective_scan_seq_sharded
@@ -40,13 +39,12 @@ def test_seq_sharded_matches_single_device(rng, directions):
     def local(x, dt, Bm, Cm):
         return selective_scan_seq_sharded(
             x, dt, A, Bm, Cm, Ds, dtb, None, "seq", n_seq,
-            directions=directions, bl=32, bd=16)
+            directions=directions)
 
     f = jax.shard_map(local, mesh=mesh,
                       in_specs=(lspec, lspec, lspec, lspec),
                       out_specs=lspec, check_vma=False)
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.jit(f)(x, dt, Bm, Cm)
+    got = jax.jit(f)(x, dt, Bm, Cm)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=3e-4, atol=3e-4)
 
@@ -87,7 +85,7 @@ def test_seq_sharded_grads_match_single_device(rng, directions):
         def local(x, dt, Bm, Cm, w):
             y = selective_scan_seq_sharded(
                 x, dt, A, Bm, Cm, Ds, dtb, None, "seq", n_seq,
-                directions=directions, bl=32, bd=16)
+                directions=directions)
             return jax.lax.psum(jnp.sum(y * w), "seq")
 
         f = jax.shard_map(local, mesh=mesh,
@@ -95,9 +93,8 @@ def test_seq_sharded_grads_match_single_device(rng, directions):
                           out_specs=P(), check_vma=False)
         return f(x, dt, Bm, Cm, w)
 
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.jit(jax.grad(sp_loss, argnums=(0, 1, 2, 3, 4, 5, 6)))(
-            x, dt, A, Bm, Cm, Ds, dtb)
+    got = jax.jit(jax.grad(sp_loss, argnums=(0, 1, 2, 3, 4, 5, 6)))(
+        x, dt, A, Bm, Cm, Ds, dtb)
 
     names = ["dx", "ddt", "dA", "dB", "dC", "dD", "ddtb"]
     for n, g, r in zip(names, got, want):
@@ -134,7 +131,7 @@ def test_seq_sharded_grads_fused_dtproj(rng):
         def local(x, dt_lr, Bm, Cm, w):
             y = selective_scan_seq_sharded(
                 x, dt_lr, A, Bm, Cm, Ds, dtb, W, "seq", n_seq,
-                directions=None, bl=32, bd=16)
+                directions=None)
             return jax.lax.psum(jnp.sum(y * w), "seq")
 
         f = jax.shard_map(local, mesh=mesh,
@@ -142,9 +139,8 @@ def test_seq_sharded_grads_fused_dtproj(rng):
                           out_specs=P(), check_vma=False)
         return f(x, dt_lr, Bm, Cm, w)
 
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.jit(jax.grad(sp_loss, argnums=(0, 1, 2)))(
-            x, dt_lr, W, A, Bm, Cm, Ds, dtb)
+    got = jax.jit(jax.grad(sp_loss, argnums=(0, 1, 2)))(
+        x, dt_lr, W, A, Bm, Cm, Ds, dtb)
 
     for n, g, r in zip(["dx", "ddt_lr", "dW"], got, want):
         np.testing.assert_allclose(np.asarray(g), np.asarray(r),
@@ -163,7 +159,7 @@ def test_model_forward_context_parallel(rng):
 
     n_seq = 4
     cfg = CaduceusConfig(d_model=16, n_layer=2, vocab_size=16, d_state=4,
-                         scan_impl="pallas")
+                         scan_impl="chunked")
     cfg_ref = CaduceusConfig(d_model=16, n_layer=2, vocab_size=16, d_state=4,
                              scan_impl="associative")
     params = jax.jit(ft.partial(caduceus.init_params, cfg=cfg))(
@@ -181,8 +177,7 @@ def test_model_forward_context_parallel(rng):
     f = jax.shard_map(local, mesh=mesh,
                       in_specs=(P(), P(None, "seq")),
                       out_specs=P(None, "seq"), check_vma=False)
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.jit(f)(params, ids)
+    got = jax.jit(f)(params, ids)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
 
@@ -198,7 +193,7 @@ def test_model_grads_context_parallel(rng):
 
     n_seq = 4
     cfg = CaduceusConfig(d_model=16, n_layer=2, vocab_size=16, d_state=4,
-                         scan_impl="pallas")
+                         scan_impl="chunked")
     cfg_ref = CaduceusConfig(d_model=16, n_layer=2, vocab_size=16, d_state=4,
                              scan_impl="associative")
     params = jax.jit(ft.partial(caduceus.init_params, cfg=cfg))(
@@ -234,8 +229,7 @@ def test_model_grads_context_parallel(rng):
                           out_specs=P(), check_vma=False)
         return f(params, ids, labels)
 
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.grad(jax.jit(sp_loss))(params)
+    got = jax.grad(jax.jit(sp_loss))(params)
 
     for path in (("embedding",), ("blocks", "conv_w"), ("blocks", "A_log"),
                  ("blocks", "x_proj_B"), ("blocks", "dt_proj_w"),
@@ -260,7 +254,7 @@ def test_train_step_context_parallel(rng):
     from plantcaduceus_tpu.train import step as step_lib
 
     cfg = CaduceusConfig(d_model=16, n_layer=2, vocab_size=16, d_state=4,
-                         scan_impl="pallas")
+                         scan_impl="chunked")
     params = jax.jit(functools.partial(caduceus.init_params, cfg=cfg))(
         jax.random.PRNGKey(0))
     B, L = 8, 64
@@ -271,15 +265,12 @@ def test_train_step_context_parallel(rng):
 
     def run(mesh_cfg):
         mesh = meshlib.make_mesh(mesh_cfg)
-        # remat=False: interpret-mode pallas is an io_callback, whose effect
-        # cannot live under jax.checkpoint (real-TPU remat is fine).
         init_state, train_step, eval_step = step_lib.make_train_step(
             cfg, optax.sgd(1e-2), mesh, params, dtype=jnp.float32,
-            remat=False, fsdp=False)
+            remat=True, fsdp=False)
         state = init_state(params)
-        with pltpu.force_tpu_interpret_mode():
-            state, metrics = train_step(state, batch)
-            ev = eval_step(state, batch)
+        state, metrics = train_step(state, batch)
+        ev = eval_step(state, batch)
         return state, metrics, ev
 
     state_dp, m_dp, ev_dp = run(meshlib.MeshConfig(data=8))
@@ -300,8 +291,7 @@ def test_train_step_context_parallel(rng):
 
 def test_model_forward_context_parallel_auto_impl(rng):
     """Context parallelism must work with the default scan_impl='auto'
-    (regression: the sp branch used to require impl to resolve to 'pallas',
-    which 'auto' never does off-TPU)."""
+    (on the CPU it resolves to the chunked scan's seeded form)."""
     import functools as ft
 
     from plantcaduceus_tpu.models import caduceus
@@ -323,8 +313,7 @@ def test_model_forward_context_parallel_auto_impl(rng):
                                       sp_shards=n_seq)["logits"],
         mesh=mesh, in_specs=(P(), P(None, "seq")),
         out_specs=P(None, "seq"), check_vma=False)
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.jit(f)(params, ids)
+    got = jax.jit(f)(params, ids)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
 

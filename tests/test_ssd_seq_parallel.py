@@ -6,7 +6,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh, PartitionSpec as P
 
 from plantcaduceus_tpu.ops.ssd import ssd_chunked
@@ -33,14 +32,13 @@ def _ref_flat(x, dt, A, Bm, Cm, Ds, dtb, chunk, reverse):
         directions=(reverse,)).reshape(B, L, HP)
 
 
-def _shard_f(args, n_seq, chunk, reverse, impl):
+def _shard_f(args, n_seq, chunk, reverse):
     mesh = Mesh(np.asarray(jax.devices()[:n_seq]), ("seq",))
     lspec = P(None, "seq", None)
     specs = (lspec, lspec, P(), lspec, lspec, P(), P())
 
     def local(*a):
-        return ssd_dir_seq_sharded(*a, chunk, reverse, "seq", n_seq,
-                                   impl=impl)
+        return ssd_dir_seq_sharded(*a, chunk, reverse, "seq", n_seq)
 
     return jax.shard_map(local, mesh=mesh, in_specs=specs,
                          out_specs=lspec, check_vma=False)
@@ -50,7 +48,7 @@ def _shard_f(args, n_seq, chunk, reverse, impl):
 def test_seq_sharded_matches_single_device(rng, reverse):
     args = make_flat(rng)
     want = _ref_flat(*args, chunk=32, reverse=reverse)
-    got = jax.jit(_shard_f(args, 4, 32, reverse, "xla"))(*args)
+    got = jax.jit(_shard_f(args, 4, 32, reverse))(*args)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=3e-4, atol=3e-4)
 
@@ -62,7 +60,7 @@ def test_seq_sharded_grads_match_single_device(rng, reverse):
     args = make_flat(rng)
     seed = jnp.asarray(
         np.random.default_rng(1).standard_normal(args[0].shape), jnp.float32)
-    f_sp = _shard_f(args, 4, 32, reverse, "xla")
+    f_sp = _shard_f(args, 4, 32, reverse)
 
     def loss(fn):
         return lambda *a: jnp.sum(fn(*a) * seed)
@@ -77,18 +75,17 @@ def test_seq_sharded_grads_match_single_device(rng, reverse):
                                    rtol=1e-3, atol=1e-3, err_msg=f"arg {i}")
 
 
-def test_seq_sharded_pallas_core(rng):
-    """The Pallas ssd_dir local core (interpret mode) composes with the
-    stitch/correction the same as the XLA core — fwd and an x-gradient."""
+def test_seq_sharded_wide_heads(rng):
+    """At the presets' head geometry (P = N = chunk = 128) the local core
+    composes with the stitch/correction — fwd and an x-gradient."""
     args = make_flat(rng, B=1, L=512, H=2, Pd=128, NG=1, N=128)
     want = _ref_flat(*args, chunk=128, reverse=True)
-    f_sp = _shard_f(args, 4, 128, True, "pallas")
+    f_sp = _shard_f(args, 4, 128, True)
     seed = jnp.asarray(
         np.random.default_rng(1).standard_normal(args[0].shape), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        got = jax.jit(f_sp)(*args)
-        gx = jax.grad(
-            lambda x: jnp.sum(jax.jit(f_sp)(x, *args[1:]) * seed))(args[0])
+    got = jax.jit(f_sp)(*args)
+    gx = jax.grad(
+        lambda x: jnp.sum(jax.jit(f_sp)(x, *args[1:]) * seed))(args[0])
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=3e-4, atol=3e-4)
     want_gx = jax.grad(

@@ -589,7 +589,7 @@ def test_lora_batch_at_covers_all_rows():
 
 
 def test_first_step_oom_raises_actionable_error(rng):
-    """An HBM-overflow-shaped failure on the FIRST training step is wrapped
+    """A device-memory-overflow failure on the FIRST training step is wrapped
     with the actionable levers (--grad-accum / --fsdp / --pipe) instead of
     surfacing as an opaque runtime error (train/loop.py)."""
     import pytest
@@ -601,7 +601,7 @@ def test_first_step_oom_raises_actionable_error(rng):
 
     def exploding_step(state, batch):
         raise RuntimeError("RESOURCE_EXHAUSTED: Ran out of memory in "
-                           "memory space hbm; used 17.1G of 15.7G")
+                           "memory space hbm; used 81.2G of 79.1G")
 
     batches = iter([{"input_ids": np.zeros((2, 8), np.int32)}])
     with pytest.raises(RuntimeError, match="--grad-accum"):

@@ -1,23 +1,13 @@
-"""Deterministic collective audit of the sharded programs (SCALING artifact).
+"""Deterministic collective audit of the sharded programs.
 
-The virtual-CPU-mesh *timing* proxy is noise-dead on this contended 4-core
-host (r3/r4: identical code measured 0.795 vs 0.674 "efficiency" between
-runs). This tool replaces it as the scaling signal with a logic-level audit
-that host contention cannot corrupt: compile the REAL sharded scoring
-forward and the REAL training step on an 8-virtual-device CPU mesh, read
-the post-SPMD HLO, and pin every collective XLA will issue on a real pod —
-op kinds, instruction counts, payload bytes per step.
-
-From the byte inventory we compute a *projected* 1->N scaling efficiency
-against the measured single-chip step time (tests/goldens/
-train_bench_anchors.json), with the interconnect assumptions stated
-explicitly, instead of timing 8 virtual devices that share one physical
-core. The audit is deterministic for a given jax version; a pinned golden
-(tests/goldens/collective_audit.json, tests/test_collective_audit.py) fails
-if a code change adds or grows a collective.
-
-Replaces tools/bench_scaling.py as the SCALING_r{N}.json payload; the
-timing proxy remains runnable but demoted to informational.
+Compile the REAL sharded scoring forward and the REAL training step on an
+8-virtual-device CPU mesh, read the post-SPMD HLO, and pin every collective
+XLA will issue on a real multi-device mesh — op kinds, instruction counts,
+payload bytes per step. The inventory does not depend on the device, and
+host contention cannot corrupt it (unlike a timing proxy on virtual
+devices). A pinned golden (tests/goldens/collective_audit.json,
+tests/test_collective_audit.py) fails if a code change adds or grows a
+collective.
 
 Usage:
     PCAD_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -119,10 +109,10 @@ def audit_scoring(n_dev: int = 8) -> dict:
 
     from plantcaduceus_tpu.engine.runner import InferenceRunner
     from plantcaduceus_tpu.parallel import mesh as meshlib
-    from plantcaduceus_tpu.utils.model_loading import init_params_host
+    from plantcaduceus_tpu.utils.model_loading import init_params_seeded
 
     cfg = _small_cfg()
-    params = init_params_host(cfg)
+    params = init_params_seeded(cfg)
     mesh = meshlib.make_mesh(meshlib.MeshConfig(data=n_dev),
                              devices=jax.devices()[:n_dev])
     runner = InferenceRunner(params, cfg, mesh=mesh, dtype=jnp.bfloat16,
@@ -180,53 +170,10 @@ def audit_training(n_dev: int = 8, fsdp: int = 1,
             "total_bytes": sum(c["bytes"] for c in colls.values())}
 
 
-# ---------------------------------------------------------------------------
-# Projection: bytes-over-ICI vs measured single-chip compute
-# ---------------------------------------------------------------------------
-
-# TPU v5e interconnect: 2D torus, 4 ICI links/chip, ~45 GB/s per link per
-# direction (public "How to Scale Your Model" numbers). A bidirectional
-# ring all-reduce of S bytes moves 2*(N-1)/N * S per chip; with 2 usable
-# rings (2D torus) the per-chip wall time is that volume / (2 * 45 GB/s).
-ICI_LINK_GBPS = 45e9
-ICI_RINGS = 2
-
-ANCHORS_PATH = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tests", "goldens",
-    "train_bench_anchors.json")
-
-
-def _project(n_params: int, step_s: float, n_dev: int = 8) -> dict:
-    """Projected DP scaling for a real preset: gradient all-reduce bytes
-    scale exactly with parameter count (fp32 grads, one psum per step —
-    verified against the audited small-geometry bytes), so
-    comm_s = 2(N-1)/N * 4*n_params / (rings * link_bw) against the
-    anchor-measured single-chip step time."""
-    grad_bytes = 4.0 * n_params
-    comm_s = (2.0 * (n_dev - 1) / n_dev) * grad_bytes / (
-        ICI_RINGS * ICI_LINK_GBPS)
-    eff = step_s / (step_s + comm_s)
-    return {"grad_allreduce_bytes": int(grad_bytes),
-            "compute_s_per_step": step_s,
-            "comm_s_no_overlap": round(comm_s, 6),
-            "projected_efficiency_no_overlap": round(eff, 4)}
-
-
-# Parameter counts of the real presets (measured by bench.py lanes; also
-# recomputable via CaduceusConfig.preset + init_params).
-def preset_params(name: str) -> int:
-    from plantcaduceus_tpu.models import caduceus
-    from plantcaduceus_tpu.models.config import CaduceusConfig
-
-    import jax
-
-    cfg = CaduceusConfig.preset(name)
-    return _param_count(caduceus.init_params(jax.random.PRNGKey(0), cfg))
-
-
 def build_artifact(n_dev: int = 8, include_fsdp: bool = True,
                    include_ssd: bool = True) -> dict:
-    """The full SCALING artifact payload (audit + projections)."""
+    """The audit payload: every program's collective inventory, and the
+    tie of the gradient all-reduce bytes to the parameter count."""
     audits = {"scoring_dp8": audit_scoring(n_dev),
               "train_dp8": audit_training(n_dev, fsdp=1)}
     if include_fsdp:
@@ -235,8 +182,8 @@ def build_artifact(n_dev: int = 8, include_fsdp: bool = True,
         audits["train_dp8_ssd"] = audit_training(n_dev, fsdp=1,
                                                  ssm_variant="mamba2")
 
-    # Sanity tie between audit and projection arithmetic: the small-geometry
-    # gradient all-reduce payload must equal 4 bytes * n_params (fp32 grads,
+    # Sanity tie: the small-geometry gradient all-reduce payload must equal
+    # 4 bytes * n_params (fp32 grads,
     # one reduction of every gradient tensor per step).
     t = audits["train_dp8"]
     ar = t["collectives"].get("all-reduce", {"bytes": 0})
@@ -245,57 +192,17 @@ def build_artifact(n_dev: int = 8, include_fsdp: bool = True,
     # allow a small absolute slack for those.
     tie = abs(ar["bytes"] - grad_bytes_expected) <= 4096 + 0.02 * grad_bytes_expected
 
-    anchors = {}
-    try:
-        anchors = json.load(open(ANCHORS_PATH))
-        if isinstance(anchors, dict) and "lanes" in anchors:
-            anchors = {k: v if isinstance(v, (int, float)) else v.get("tokens_per_s")
-                       for k, v in anchors["lanes"].items()}
-    except Exception:
-        pass
-
-    projections = {}
-    lane_geometry = {"l20": (32, 512), "l32": (32, 512),
-                     "l20-ssd": (32, 512), "l32-ssd": (32, 512),
-                     "pc2-small": (8, 8192), "pc2-small-ssd": (8, 8192),
-                     "pc2-medium": (2, 8192)}
-    for lane, (batch, window) in lane_geometry.items():
-        tps = anchors.get(lane)
-        if not tps:
-            continue
-        step_s = batch * window / float(tps)
-        projections[f"train_{lane}_dp{n_dev}"] = {
-            "params": preset_params(lane),
-            **_project(preset_params(lane), round(step_s, 4), n_dev)}
-
     return {
         "mode": "deterministic collective audit: post-SPMD HLO of the real "
-                "8-virtual-device programs (kinds/counts/payload bytes), "
-                "projected to pod scaling analytically — replaces the "
-                "noise-dead virtual-CPU-mesh timing proxy (r4 verdict #3)",
-        "assumptions": {
-            "ici_link_bytes_per_s": ICI_LINK_GBPS,
-            "ici_rings_used": ICI_RINGS,
-            "allreduce_model": "bidirectional ring, 2(N-1)/N volume, "
-                               "no compute/comm overlap (conservative "
-                               "lower bound on efficiency)",
-            "device": "TPU v5e (45 GB/s/link/direction, 4 links, 2D torus)",
-        },
+                "8-virtual-device programs (kinds/counts/payload bytes)",
         "audit_geometry": {"d_model": AUDIT_D_MODEL, "n_layer": AUDIT_N_LAYER,
                            "global_batch": AUDIT_BATCH,
                            "window": AUDIT_WINDOW},
         "audits": audits,
-        "audit_projection_tie": {
+        "audit_grad_bytes_tie": {
             "grad_allreduce_bytes_audited": ar["bytes"],
             "grad_bytes_expected_4x_params": grad_bytes_expected,
             "consistent": bool(tie)},
-        "projections_dp8": projections,
-        "scoring_note": "the DP scoring forward issues "
-                        f"{audits['scoring_dp8']['total_bytes']} collective "
-                        "bytes per batch (weights pre-replicated, outputs "
-                        "device-local) — projected scaling ~1.0; the >=85% "
-                        "north star is bounded by input/output fan-out, "
-                        "not ICI",
     }
 
 
